@@ -1,0 +1,647 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (dbsp_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (nonzero exit, no result line):
+
+1. device  — the card's name, and name + power limit from nvidia-smi;
+2. build   — compile every CUDA source of the port (one nvcc per source,
+             all at once) and print the build seconds;
+3. kernels — each kernel entry point against its plain PyTorch version
+             on the card, exactly, on adversarial cases (empty levels,
+             dead rows, duplicates, full capacity, total > out_cap,
+             empty / retraction-only / out-of-range segments) and on
+             q4-sized inputs (ladders up to 2M rows, 100k-row deltas);
+4. q4      — Nexmark q4 on the host runtime on the card at 100,000 events
+             per tick: 4 warm ticks then 20 measured (2,000,000 events, a
+             cut of Nexmark's usual 100M made for the run's time limit),
+             with every kernel's launch count read around the run and
+             per measured tick, and the accumulated output held against a
+             numpy oracle of q4;
+5. cross   — the first 3 ticks of 10,000 events through the port on the
+             CPU (plain versions) and on the card: equal rows per tick;
+6. timing  — each kernel, its plain version and (where one exists) one
+             PyTorch library call, on the largest inputs q4 gave it.
+
+Output: the phase summaries, then one line {"kernels": [...]}, then the
+nvidia-smi line, then the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+WARM_TICKS = 4
+TICKS = 20
+EVENTS_PER_TICK = 100_000
+CROSS_TICKS, CROSS_EVENTS = 3, 10_000
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
+# The data sheet gives no integer rate outside the tensor cores. This one
+# is derived from the H100 SXM's layout: 132 SMs x 64 INT32 lanes x the
+# 1.98 GHz boost clock, halved because an int64 compare or add issues as
+# two 32-bit instructions. The kernels' operations are int64 compares.
+INT64_OPS_PER_S = 132 * 64 * 1.98e9 / 2
+
+REPLACES = {
+    "join_ladder": "dbsp_tpu/zset/pallas_kernels.py:338",
+    "gather_ladder": "dbsp_tpu/zset/pallas_kernels.py:357",
+    "segment_reduce": "dbsp_tpu/zset/pallas_kernels.py:430",
+    "rank_merge": "dbsp_tpu/zset/pallas_kernels.py:519",
+}
+SOURCE = {
+    "join_ladder": "dbsp_tpu_torch/csrc/ladder_consumer.cu",
+    "gather_ladder": "dbsp_tpu_torch/csrc/ladder_consumer.cu",
+    "segment_reduce": "dbsp_tpu_torch/csrc/segment_reduce.cu",
+    "rank_merge": "dbsp_tpu_torch/csrc/rank_merge.cu",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Exact comparison of a kernel with its plain version
+# ---------------------------------------------------------------------------
+
+
+def flat_outputs(out):
+    """Every tensor of a (nested) kernel result, in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in flat_outputs(o)]
+
+
+class Checker:
+    """Runs kernel-vs-plain comparisons and keeps the largest absolute
+    difference seen per kernel (0 when they agree, as they must)."""
+
+    def __init__(self):
+        self.max_err = {k: 0.0 for k in REPLACES}
+        self.cases = {k: 0 for k in REPLACES}
+
+    def check(self, name: str, what: str, kernel_fn, plain_fn, *args,
+              **kw):
+        import torch
+
+        got = flat_outputs(kernel_fn(*args, **kw))
+        want = flat_outputs(plain_fn(*args, **kw))
+        torch.cuda.synchronize()
+        if len(got) != len(want):
+            fail(f"{name} [{what}]: {len(got)} outputs vs {len(want)}")
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{name} [{what}] output {i}: {g.dtype}{tuple(g.shape)}"
+                     f" vs plain {w.dtype}{tuple(w.shape)}")
+            if g.numel():
+                d = (g.to(torch.float64) - w.to(torch.float64)).abs().max()
+                err = max(err, float(d))
+            if not torch.equal(g, w):
+                fail(f"{name} [{what}] output {i} differs from the plain "
+                     f"version (max abs diff {err})")
+        self.max_err[name] = max(self.max_err[name], err)
+        self.cases[name] += 1
+        return got
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
+
+
+def consolidated(rng, n_live, cap, dev, nk=2, nv=1, key_range=40):
+    """A consolidated batch of up to ``n_live`` random rows (weights in
+    [-3, 3] without 0) at capacity ``cap`` — dead rows past the live
+    prefix."""
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    cols = [rng.integers(0, key_range, n_live).astype(np.int64)
+            for _ in range(nk + nv)]
+    w = rng.integers(-3, 4, n_live)
+    w[w == 0] = 1
+    return Batch.from_columns(cols[:nk], cols[nk:], w, cap=cap, device=dev)
+
+
+def adversarial_ladders(rng, dev):
+    """Duplicate keys across levels, an EMPTY level, a FULL-capacity level
+    (no dead tail), heterogeneous caps."""
+    import torch
+
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    full = Batch.from_columns(
+        [np.arange(64, dtype=np.int64), np.arange(64, dtype=np.int64) % 7],
+        [np.zeros(64, np.int64)], np.ones(64, np.int64), cap=64, device=dev)
+    yield [consolidated(rng, max(2, c // 3), c, dev)
+           for c in (256, 64, 32, 16)]
+    yield [consolidated(rng, 20, 64, dev),
+           Batch.empty((torch.int64, torch.int64), (torch.int64,), cap=32,
+                       device=dev),
+           consolidated(rng, 10, 16, dev)]
+    yield [full, consolidated(rng, 30, 64, dev, key_range=8)]
+
+
+def bids_like(rng, n, cap, dev, key_range):
+    """A consolidated batch of the bids schema (int64 key; int64, int64,
+    int32, int64 values), n random rows."""
+    import torch
+
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    keys = [torch.from_numpy(rng.integers(0, key_range, n))]
+    vals = [torch.from_numpy(rng.integers(0, 1 << 40, n)),
+            torch.from_numpy(rng.integers(1, 10_000_000, n)),
+            torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 1 << 41, n))]
+    return Batch.from_columns(keys, vals, np.ones(n, np.int64), cap=cap,
+                              device=dev)
+
+
+SPEC = (("count", 0), ("sum", 0), ("min", 0), ("max", 1), ("avg", 1),
+        ("present", 0))
+
+
+def seg_case(rng, n, S, dev):
+    import torch
+
+    v1 = rng.integers(-1000, 1000, n)
+    v2 = rng.integers(-9, 9, n).astype(np.int32)
+    w = rng.integers(-3, 4, n)
+    seg = rng.integers(-2, S + 5, n).astype(np.int32)  # out-of-range ids
+    if n >= 4:
+        seg[seg == 0] = S + 2  # segment 0 stays empty
+        seg[seg == S - 1] = S + 1
+        seg[:2] = S - 1  # segment S-1 holds retractions only
+        w[:2] = -1
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(v1), t(v2)), t(w), t(seg)
+
+
+def seg_out_dtypes(spec, vals, w):
+    from dbsp_tpu_torch.operators.aggregate import _seg_out_dtype
+
+    return tuple(_seg_out_dtype(op, c, vals, w) for op, c in spec)
+
+
+def check_kernels(ck: Checker, dev) -> None:
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    rng = np.random.default_rng(2024)
+    # -- ladder consumers: adversarial ladders, roomy and overflowing caps
+    for li, ladder in enumerate(adversarial_ladders(rng, dev)):
+        delta = consolidated(rng, 20, 32, dev)
+        for out_cap in (1024, 4):
+            ck.check("join_ladder", f"ladder {li} out_cap {out_cap}",
+                     ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                     delta.keys, delta.weights, ladder, 2, out_cap)
+            qlive = delta.weights != 0
+            qhi = tuple(k + torch.from_numpy(
+                rng.integers(-2, 4, delta.cap)).to(dev) for k in delta.keys)
+            for mode, kw in (("equal", {}), ("range", {"qhi_keys": qhi}),
+                             ("gather_keys", {"gather_keys": 2})):
+                ck.check("gather_ladder", f"ladder {li} {mode} {out_cap}",
+                         ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                         delta.keys, qlive, ladder, out_cap, **kw)
+    # -- q4-sized ladder: bids-schema levels up to 2M rows, 100k delta
+    big = [bids_like(rng, n, cap, dev, key_range=60_000)
+           for n, cap in ((1_900_000, 1 << 21), (400_000, 1 << 19),
+                          (90_000, 1 << 17))]
+    delta = bids_like(rng, 92_000, 1 << 17, dev, key_range=60_000)
+    total = int(ck_mod.join_ladder_plain(delta.keys, delta.weights, big, 1,
+                                         1 << 20)[4])
+    for out_cap in (1 << 23, total // 2):
+        ck.check("join_ladder", f"q4-sized out_cap {out_cap} total {total}",
+                 ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                 delta.keys, delta.weights, big, 1, out_cap)
+        ck.check("gather_ladder", f"q4-sized out_cap {out_cap}",
+                 ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                 delta.keys, delta.weights != 0, big, out_cap)
+    # -- segment reduce
+    for n, S in ((1, 1), (64, 7), (500, 130), (300, 3), (2_000_000, 100_000)):
+        vals, w, seg = seg_case(rng, n, S, dev)
+        ck.check("segment_reduce", f"n {n} segments {S}",
+                 ck_mod.segment_reduce, ck_mod.segment_reduce_plain,
+                 SPEC, vals, w, seg, S, seg_out_dtypes(SPEC, vals, w))
+    # -- rank merge: duplicates, sentinel tails, full capacity, empty side
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    pairs = [(consolidated(rng, int(rng.integers(0, 50)), 64, dev, nk=1,
+                           key_range=12),
+              consolidated(rng, int(rng.integers(0, 100)), 128, dev, nk=1,
+                           key_range=12)) for _ in range(4)]
+    ones = torch.ones(16, dtype=torch.int64)
+    pairs.append((Batch.from_columns([torch.arange(0, 16)], [], ones,
+                                     cap=16, device=dev, consolidated=True),
+                  Batch.from_columns([torch.arange(8, 24)], [], -ones,
+                                     cap=16, device=dev, consolidated=True)))
+    pairs.append((Batch.empty((torch.int64,), (torch.int32,), cap=8,
+                              device=dev),
+                  Batch.from_columns([torch.tensor([3, 1, 3])],
+                                     [torch.tensor([2, 7, -1],
+                                                   dtype=torch.int32)],
+                                     torch.tensor([1, 2, 3]), cap=8,
+                                     device=dev)))
+    pairs.append((big[0], big[1]))  # 2M + 512k rows, bids schema
+    for i, (a, b) in enumerate(pairs):
+        ck.check("rank_merge", f"pair {i} ({a.cap} + {b.cap})",
+                 ck_mod.rank_merge_scatter, ck_mod.rank_merge_scatter_plain,
+                 a.cols, a.weights, b.cols, b.weights)
+
+
+# ---------------------------------------------------------------------------
+# q4
+# ---------------------------------------------------------------------------
+
+
+def q4_oracle(cols) -> dict:
+    """Batch recomputation of q4 over all events (numpy): per auction the
+    max price of the bids inside [date_time, expires], then per category
+    the truncated average of those maxima."""
+    a, b = cols["auctions"], cols["bids"]
+    pos = np.clip(np.searchsorted(a["id"], b["auction"]), 0,
+                  len(a["id"]) - 1)
+    exists = a["id"][pos] == b["auction"]
+    ts = b["date_time"]
+    ok = exists & (a["date_time"][pos] <= ts) & (ts <= a["expires"][pos])
+    aids, inv = np.unique(b["auction"][ok], return_inverse=True)
+    best = np.zeros(len(aids), np.int64)
+    np.maximum.at(best, inv, b["price"][ok])
+    cat = a["category"][np.searchsorted(a["id"], aids)]
+    out = {}
+    for c in np.unique(cat):
+        ps = best[cat == c]
+        out[(int(c), int(ps.sum()) // len(ps))] = 1
+    return out
+
+
+def accumulate(acc: dict, delta: dict) -> None:
+    for r, w in delta.items():
+        acc[r] = acc.get(r, 0) + w
+        if acc[r] == 0:
+            del acc[r]
+
+
+def build_q4(device=None):
+    from dbsp_tpu_torch.circuit import Runtime
+    from dbsp_tpu_torch.nexmark import build_inputs, queries
+
+    def build(c):
+        streams, handles = build_inputs(c)
+        return handles, queries.q4(*streams).output()
+
+    return Runtime.init_circuit(1, build, device=device)
+
+
+class Recorder:
+    """Wraps a kernel entry point to keep the arguments of its largest
+    call on the main path (for timing at the shapes q4 gives it)."""
+
+    def __init__(self, module, name: str, size_fn):
+        self.module, self.name, self.size_fn = module, name, size_fn
+        self.orig = getattr(module, name)
+        self.best = (-1, None, None)
+
+    def __call__(self, *args, **kw):
+        size = self.size_fn(*args, **kw)
+        if size > self.best[0]:
+            # a spine's level list changes after the tick: keep a snapshot
+            self.best = (size, tuple(tuple(a) if isinstance(a, list) else a
+                                     for a in args), kw)
+        return self.orig(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _ladder_size(*args, **kw):
+    levels = args[2]
+    return sum(lvl.cap for lvl in levels) + args[1].shape[0]
+
+
+def run_q4(dev):
+    import torch
+
+    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    gen = NexmarkGenerator(GeneratorConfig(seed=1))
+    handle, (handles, out) = build_q4()  # device=None: the card
+    if handle.runtime.device.type != "cuda":
+        fail(f"q4 built on {handle.runtime.device}, not the card")
+    recorders = [
+        Recorder(ck_mod, "join_ladder", _ladder_size),
+        Recorder(ck_mod, "gather_ladder", _ladder_size),
+        Recorder(ck_mod, "segment_reduce",
+                 lambda spec, vals, w, *a, **k: w.shape[0]),
+        Recorder(ck_mod, "rank_merge_scatter",
+                 lambda ca, wa, cb, wb: wa.shape[0] + wb.shape[0]),
+    ]
+    acc: dict = {}
+    with contextlib.ExitStack() as stack:
+        for r in recorders:
+            stack.enter_context(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck_mod.reset_launches()
+        n = 0
+        for _ in range(WARM_TICKS):
+            gen.feed(handles, n, n + EVENTS_PER_TICK)
+            handle.step()
+            accumulate(acc, out.take().to_dict())
+            n += EVENTS_PER_TICK
+        handle.step_times_ns.clear()
+        per_tick = {name: [] for name in ck_mod.LAUNCHES}
+        t0 = time.perf_counter()
+        for _ in range(TICKS):
+            before = dict(ck_mod.LAUNCHES)
+            gen.feed(handles, n, n + EVENTS_PER_TICK)
+            handle.step()
+            accumulate(acc, out.take().to_dict())
+            n += EVENTS_PER_TICK
+            for name, count in ck_mod.LAUNCHES.items():
+                per_tick[name].append(count - before[name])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(ck_mod.LAUNCHES)
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the q4 path")
+    want = q4_oracle(gen.generate(0, n))
+    if acc != want:
+        fail(f"q4 accumulated output differs from the oracle: "
+             f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
+    if not want:
+        fail("q4 oracle is empty: the check would be vacuous")
+    lat = sorted(handle.step_times_ns)
+    spine_bytes = sum(sp.nbytes() for node in handle.circuit.nodes
+                      for sp in (getattr(node.operator, attr, None)
+                                 for attr in ("spine", "out_spine",
+                                              "acc_spine"))
+                      if sp is not None)
+    summary = {
+        "phase": "q4", "device": "cuda", "events_per_tick": EVENTS_PER_TICK,
+        "warm_ticks": WARM_TICKS, "ticks": TICKS,
+        "events_measured": TICKS * EVENTS_PER_TICK, "events_total": n,
+        "events_per_s": TICKS * EVENTS_PER_TICK / elapsed,
+        "tick_p50_ms": lat[len(lat) // 2] / 1e6,
+        "tick_p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] / 1e6,
+        "tick_max_ms": lat[-1] / 1e6,
+        "spine_device_bytes": spine_bytes,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "launches_per_measured_tick": {name: [min(c), max(c)]
+                                       for name, c in per_tick.items()},
+        "output_rows": len(acc),
+        "note": "2M measured events: a cut of Nexmark's usual 100M events, "
+                "made for the run's time limit",
+    }
+    say(json.dumps(summary))
+    captured = {r.name: r.best for r in recorders}
+    captured["rank_merge"] = captured.pop("rank_merge_scatter")
+    return launches, per_tick, captured
+
+
+def cross_check() -> int:
+    """The port on the CPU (plain versions) and on the card, same events:
+    equal output rows per tick. Returns the rows compared."""
+    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+
+    gen = NexmarkGenerator(GeneratorConfig(seed=1))
+    cpu_h, (cpu_in, cpu_out) = build_q4(device="cpu")
+    gpu_h, (gpu_in, gpu_out) = build_q4()
+    rows = 0
+    for i in range(CROSS_TICKS):
+        n0, n1 = i * CROSS_EVENTS, (i + 1) * CROSS_EVENTS
+        gen.feed(cpu_in, n0, n1)
+        gen.feed(gpu_in, n0, n1)
+        cpu_h.step()
+        gpu_h.step()
+        want, got = cpu_out.to_dict(), gpu_out.to_dict()
+        if got != want:
+            fail(f"cross-check tick {i}: card {sorted(got.items())[:5]} vs "
+                 f"CPU {sorted(want.items())[:5]}")
+        rows += len(want)
+    if not rows:
+        fail("cross-check compared no rows")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean device time of one call, by CUDA events around ``reps`` calls
+    after two warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _nbytes(t) -> int:
+    return t.element_size() * t.numel()
+
+
+def _steps(n: int) -> int:
+    return max(int(n).bit_length(), 1)
+
+
+def ladder_bound(args, kw, join: bool):
+    """Least bytes and operations of one ladder launch on these inputs:
+    the queries read once; per (level, query) two searches of
+    ceil(log2(cap + 1)) probes of the key columns, but no more bytes than
+    the level's keys hold; the matched rows read once; every output slot
+    written."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    if join:
+        qkeys, qm, levels, nk, out_cap = args
+        total = int(ck_mod.join_ladder_plain(*args)[4])
+    else:
+        qkeys, qm, levels, out_cap = args[:4]
+        nk = len(qkeys)
+        total = int(ck_mod.gather_ladder_plain(*args, **kw)[1])
+    m = qm.shape[0]
+    nbytes = m * (2 * nk + 1) * 8
+    ops = 0
+    for lvl in levels:
+        probes = 2 * m * _steps(lvl.cap) * nk
+        nbytes += min(probes * 8, sum(_nbytes(c) for c in lvl.keys[:nk]))
+        ops += probes
+    row_bytes = 8 + sum(c.element_size() for c in levels[0].vals)
+    nbytes += min(total, out_cap) * row_bytes + out_cap * (4 + row_bytes)
+    return nbytes, ops + out_cap * _steps(len(levels) * m)
+
+
+def seg_bound(args):
+    spec, vals, w, seg, nseg, out_dtypes = args[:6]
+    used = {c for op, c in spec if op not in ("count", "present")}
+    nbytes = sum(_nbytes(vals[c]) for c in used) + _nbytes(w) + _nbytes(seg)
+    import torch
+
+    nbytes += sum(nseg * torch.empty((), dtype=d).element_size()
+                  for d in out_dtypes)
+    return nbytes, w.shape[0] * len(spec)
+
+
+def rank_bound(args):
+    cols_a, w_a, cols_b, w_b = args
+    n = w_a.shape[0] + w_b.shape[0]
+    row = sum(c.element_size() for c in cols_a) + w_a.element_size()
+    ops = (w_a.shape[0] * _steps(w_b.shape[0])
+           + w_b.shape[0] * _steps(w_a.shape[0])) * len(cols_a)
+    return 2 * n * row, ops
+
+
+def kernel_table(captured, launches, per_tick, ck: Checker):
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    rows = []
+    for name in ("join_ladder", "gather_ladder", "segment_reduce",
+                 "rank_merge"):
+        size, args, kw = captured[name]
+        if args is None:
+            fail(f"no main-path call of {name} was captured")
+        if name == "rank_merge":
+            kern, plain = ck_mod.rank_merge_scatter, \
+                ck_mod.rank_merge_scatter_plain
+        else:
+            kern = getattr(ck_mod, name)
+            plain = getattr(ck_mod, name + "_plain")
+        ck.check(name, f"largest q4 call (size {size})", kern, plain,
+                 *args, **kw)
+        ms = time_ms(lambda: kern(*args, **kw))
+        plain_ms = time_ms(lambda: plain(*args, **kw))
+        library_ms = None
+        if name == "join_ladder":
+            nbytes, ops = ladder_bound(args, kw, join=True)
+        elif name == "gather_ladder":
+            nbytes, ops = ladder_bound(args, kw, join=False)
+        elif name == "segment_reduce":
+            nbytes, ops = seg_bound(args)
+            spec, vals, w, seg, nseg = args[:5]
+            op, col = spec[0]
+            v = vals[col]
+            red = {"max": "amax", "min": "amin"}.get(op, "sum")
+            idx = torch.where((seg >= 0) & (seg < nseg), seg,
+                              nseg).to(torch.int64)
+            base = torch.zeros(nseg + 1, dtype=v.dtype, device=v.device)
+            library_ms = time_ms(lambda: base.scatter_reduce(
+                0, idx, v, reduce=red, include_self=True))
+        else:
+            nbytes, ops = rank_bound(args)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / INT64_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "launches_per_tick": sum(per_tick[name]) / len(per_tick[name]),
+            "max_abs_err": ck.max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "checks": ck.cases[name],
+            "timed_call_size": size,
+        })
+    return rows
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script needs an NVIDIA GPU")
+    try:
+        from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    except ImportError as e:
+        fail(f"the dbsp_tpu_torch package is not beside this script ({e})")
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    say(f"device: {kind} (count {count}); torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    say(f"nvidia-smi: {smi_line}")
+    dev = torch.device("cuda")
+
+    # 2. build
+    t0 = time.perf_counter()
+    ck_mod.build(verbose=True)
+    for stem in ("ladder_consumer", "segment_reduce", "rank_merge"):
+        ck_mod.load_library(stem)
+    say(f"build: {time.perf_counter() - t0:.3f} s")
+
+    # 3. kernels vs plain versions on the card
+    ck = Checker()
+    t0 = time.perf_counter()
+    check_kernels(ck, dev)
+    say(f"kernels: {json.dumps(ck.cases)} cases equal to the plain "
+        f"versions, tolerance 0 (exact: integer data) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 4. q4 main path on the card
+    launches, per_tick, captured = run_q4(dev)
+
+    # 5. cross-check CPU vs card
+    rows = cross_check()
+    say(f"cross-check: {CROSS_TICKS} ticks of {CROSS_EVENTS} events, "
+        f"{rows} output rows equal on the CPU and on the card")
+
+    # 6. kernel table at the shapes q4 gave each kernel
+    table = kernel_table(captured, launches, per_tick, ck)
+    say(json.dumps({"kernels": table}))
+    say(smi_line)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": kind, "count": count}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

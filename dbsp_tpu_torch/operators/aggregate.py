@@ -1,0 +1,261 @@
+"""Incremental group-by aggregation (the general, trace-gather path).
+Counterpart of ``dbsp_tpu/operators/aggregate.py``. Per tick:
+
+  1. the distinct live keys Q of the delta (one compaction);
+  2. every row of Q's groups from all input-spine levels, in one ladder
+     gather launch (``cuda_kernels.gather_ladder``) with a grow-on-demand
+     capacity;
+  3. cross-level rows of one (key, val) netted by one consolidation;
+  4. the aggregator's segment reduction per key (one segment-reduce
+     launch, the presence mask included);
+  5. the previous outputs gathered from the operator's own output spine,
+     and -1 old / +1 new emitted where a key's output changed.
+
+Every step's cost follows the delta and the touched groups, not the state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import torch
+
+from dbsp_tpu_torch.circuit.builder import Stream
+from dbsp_tpu_torch.circuit.operator import UnaryOperator
+from dbsp_tpu_torch.operators.registry import require_schema, stream_method
+from dbsp_tpu_torch.operators.trace_op import TraceView
+from dbsp_tpu_torch.trace.spine import Spine
+from dbsp_tpu_torch.zset import cuda_kernels, kernels
+from dbsp_tpu_torch.zset.batch import Batch, bucket_cap
+
+# ---------------------------------------------------------------------------
+# Aggregators
+# ---------------------------------------------------------------------------
+
+
+class Aggregator:
+    """A segment-reduction spec: ``reduce_spec()`` is a tuple of ``(op,
+    source column)`` pairs over the count/sum/min/max/avg vocabulary. The
+    reduction sees every gathered row, absent ones (net w <= 0) included,
+    and the ops ignore those themselves."""
+
+    out_dtypes: Tuple = ()
+    name = "agg"
+
+    def reduce_spec(self) -> Tuple[Tuple[str, int], ...]:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class Max(Aggregator):
+    col: int = 0
+    out_dtypes = (torch.int64,)
+    name = "max"
+
+    def reduce_spec(self):
+        return (("max", self.col),)
+
+
+@dataclasses.dataclass(frozen=True)
+class _TupleMax(Aggregator):
+    """Internal: recover the (unique) previous output row per key — one
+    max op per column over the net-positive rows."""
+
+    ncols: int = 1
+
+    def reduce_spec(self):
+        return tuple(("max", i) for i in range(self.ncols))
+
+
+# ---------------------------------------------------------------------------
+# Segment reduction
+# ---------------------------------------------------------------------------
+
+
+def _seg_out_dtype(op: str, col: int, val_cols, weights) -> torch.dtype:
+    """Result dtype of one op, as the reference's formulation has it."""
+    if op == "count":
+        return weights.dtype
+    if op == "present":
+        return torch.int64
+    v = val_cols[col]
+    if op in ("min", "max"):
+        return v.dtype
+    return torch.promote_types(v.dtype, weights.dtype)  # sum / avg
+
+
+def segment_reduce(spec, val_cols, weights: torch.Tensor, seg: torch.Tensor,
+                   num_segments: int) -> Tuple[torch.Tensor, ...]:
+    """A whole reduce spec per segment id in ONE call: the CUDA
+    segment-reduce kernel on a CUDA tensor, its plain version on a CPU
+    tensor (``cuda_kernels.segment_reduce``)."""
+    out_dtypes = tuple(_seg_out_dtype(op, col, val_cols, weights)
+                       for op, col in spec)
+    return cuda_kernels.segment_reduce(spec, val_cols, weights, seg,
+                                       num_segments, out_dtypes)
+
+
+def reduce_with_present(agg: Aggregator, val_cols, weights, seg,
+                        num_segments: int):
+    """(outputs, presence) in one segment reduction: the aggregator's spec
+    plus a ``present`` op."""
+    res = segment_reduce((*agg.reduce_spec(), ("present", 0)), val_cols,
+                         weights, seg, num_segments)
+    return tuple(res[:-1]), res[-1]
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+
+def _unique_keys(delta: Batch, nk: int):
+    """Distinct live keys of a consolidated delta, packed to the front by
+    one run-boundary scan, with their live mask — cut to the bucket of
+    the distinct key count, so the rest of the eval scales with the
+    touched keys, not the delta's capacity (one scalar device-to-host
+    read)."""
+    keys = delta.keys[:nk]
+    live = (delta.weights != 0) & ~kernels.rows_equal_prev(
+        keys, delta.cap, delta.device)
+    qkeys, w = kernels.compact(keys, live.to(torch.int32), live)
+    qlive = w != 0
+    cap = bucket_cap(max(int(torch.count_nonzero(qlive)), 1))
+    if cap < qlive.shape[-1]:
+        qkeys = tuple(k[:cap] for k in qkeys)
+        qlive = qlive[:cap]
+    return qkeys, qlive
+
+
+class GroupGather:
+    """Host driver of the ladder gather: one launch over all levels, one
+    monotone output capacity, one read of the match total per eval."""
+
+    def __init__(self):
+        self.out_cap = 0
+
+    def __call__(self, qkeys, qlive, levels: Sequence[Batch], q_cap: int):
+        """The gathered ``(qrow, val_cols, w)`` part, or None for an empty
+        ladder."""
+        if not levels:
+            return None
+        if not self.out_cap:
+            self.out_cap = bucket_cap(max(64, q_cap))
+        part, total = cuda_kernels.gather_ladder(qkeys, qlive, levels,
+                                                 self.out_cap)
+        t = int(total)
+        if t > self.out_cap:  # overflow: grow and relaunch
+            self.out_cap = bucket_cap(t)
+            part, _ = cuda_kernels.gather_ladder(qkeys, qlive, levels,
+                                                 self.out_cap)
+        return part
+
+
+def _reduce_groups(part, agg: Aggregator, q_cap: int, net: bool):
+    """Reduce a gathered part per query segment. A part from one level
+    holds unique rows; one gathered from several levels (``net``) may hold
+    insert/retract rows of one (qrow, vals), netted by a consolidation
+    first."""
+    qrow, val_cols, w = part
+    if net:
+        cols, w = kernels.consolidate_cols((qrow, *val_cols), w)
+        qrow, val_cols = cols[0], cols[1:]
+    # dead rows carry qrow >= q_cap (the q_cap marker, or the int32
+    # sentinel after a compaction): all of them go to the trash segment
+    seg = torch.clamp(qrow, max=q_cap).to(torch.int32)
+    outs, present = reduce_with_present(agg, val_cols, w, seg, q_cap + 1)
+    return tuple(o[:q_cap] for o in outs), present[:q_cap] > 0
+
+
+def _diff_outputs(qkeys, qlive, new_vals, new_present, old_vals,
+                  old_present):
+    """The retract/insert output delta (2*q_cap capacity), consolidated."""
+    changed = new_present != old_present
+    for nv, ov in zip(new_vals, old_vals):
+        changed = changed | ~kernels._col_eq(nv.to(ov.dtype), ov)
+    insert_w = torch.where(qlive & new_present & changed, 1, 0)
+    retract_w = torch.where(qlive & old_present & changed, -1, 0)
+    keys = tuple(torch.cat([c, c]) for c in qkeys)
+    vals = tuple(torch.cat([nv.to(ov.dtype), ov])
+                 for nv, ov in zip(new_vals, old_vals))
+    w = torch.cat([insert_w, retract_w]).to(torch.int64)
+    return kernels.consolidate_cols((*keys, *vals), w)
+
+
+class AggregateOp(UnaryOperator):
+    """Incremental aggregate over a traced indexed Z-set."""
+
+    def __init__(self, agg: Aggregator, key_dtypes, device, name=None):
+        self.agg = agg
+        self.name = name or f"aggregate<{agg.name}>"
+        self.key_dtypes = tuple(key_dtypes)
+        self.device = device
+        self.out_schema = (self.key_dtypes, tuple(agg.out_dtypes))
+        self.out_spine = Spine(*self.out_schema, device=device)
+        self._group_gather = GroupGather()
+        self._old_gather = GroupGather()
+
+    def eval(self, view: TraceView) -> Batch:
+        delta = view.delta
+        nk = len(self.key_dtypes)
+        if int(delta.live_count()) == 0:
+            return Batch.empty(*self.out_schema, device=self.device)
+        qkeys, qlive = _unique_keys(delta, nk)
+        q_cap = qlive.shape[-1]
+
+        levels = view.spine.batches
+        gathered = self._group_gather(qkeys, qlive, levels, q_cap)
+        if gathered is None:
+            new_vals = tuple(torch.zeros(qlive.shape, dtype=d,
+                                         device=self.device)
+                             for d in self.agg.out_dtypes)
+            new_present = torch.zeros(qlive.shape, dtype=torch.bool,
+                                      device=self.device)
+        else:
+            new_vals, new_present = _reduce_groups(
+                gathered, self.agg, q_cap, net=len(levels) > 1)
+
+        old_levels = self.out_spine.batches
+        old = self._old_gather(qkeys, qlive, old_levels, q_cap)
+        if old is None:
+            old_vals = tuple(kernels.sentinel_fill(qlive.shape, d,
+                                                   self.device)
+                             for d in self.agg.out_dtypes)
+            old_present = torch.zeros(qlive.shape, dtype=torch.bool,
+                                      device=self.device)
+        else:
+            # previous outputs are one row per key: a max over the
+            # net-positive rows recovers the value, presence its weight
+            old_vals, old_present = _reduce_groups(
+                old, _TupleMax(len(self.agg.out_dtypes)), q_cap,
+                net=len(old_levels) > 1)
+
+        cols, w = _diff_outputs(qkeys, qlive, new_vals, new_present,
+                                old_vals, old_present)
+        # the diff has 2*q_cap capacity but few live rows
+        out = Batch(cols[:nk], cols[nk:], w,
+                    runs=(int(w.shape[-1]),)).shrink_to_fit()
+        self.out_spine.insert(out)
+        return out
+
+
+@stream_method
+def aggregate(self: Stream, agg, name=None) -> Stream:
+    """Incremental aggregate by the stream's key columns; output is an
+    indexed Z-set (key -> aggregate value) maintained under retractions.
+    A linear aggregator (``LinearAverage``) takes the linear path, which
+    needs no input trace; others gather their groups from the trace."""
+    from dbsp_tpu_torch.operators.aggregate_linear import (LinearAggregateOp,
+                                                           LinearAggregator)
+
+    schema = require_schema(self, "aggregate")
+    dev = self.circuit.device
+    if isinstance(agg, LinearAggregator):
+        out = self.circuit.add_unary_operator(
+            LinearAggregateOp(agg, schema[0], dev, name), self)
+    else:
+        out = self.circuit.add_unary_operator(
+            AggregateOp(agg, schema[0], dev, name), self.trace())
+    out.schema = (tuple(schema[0]), tuple(agg.out_dtypes))
+    return out

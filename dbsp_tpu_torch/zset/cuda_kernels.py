@@ -1,0 +1,548 @@
+"""The hand-written CUDA kernels of the q4 path, each wrapper beside its
+plain PyTorch version — counterpart of ``dbsp_tpu/zset/pallas_kernels.py``.
+
+* ``join_ladder`` and ``gather_ladder`` (``csrc/ladder_consumer.cu``)
+  replace ``join_ladder_pallas`` (pallas_kernels.py:338) and
+  ``gather_ladder_pallas`` (:357);
+* ``segment_reduce`` (``csrc/segment_reduce.cu``) replaces
+  ``segment_reduce_pallas`` (:430);
+* ``rank_merge_scatter`` (``csrc/rank_merge.cu``) replaces
+  ``rank_merge_scatter`` (:519).
+
+Dispatch is by the device of the tensors a wrapper is given: on a CPU
+tensor it runs its plain version (``*_plain``, same module), on a CUDA
+tensor it launches its kernel or raises. There is no fallback from one to
+the other. Each launch adds one to ``LAUNCHES[name]``.
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
+shared library per source with a plain C interface, all sources at once,
+into ``dbsp_tpu_torch/_build/<hash of the sources>/``, and loaded with
+``ctypes``. Columns reach a kernel as int64: the wrappers widen narrower
+integer and bool columns, as the Pallas wrappers do, and narrow the
+results back. Float columns are refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from dbsp_tpu_torch.zset import kernels
+
+Cols = Tuple[torch.Tensor, ...]
+
+# launches per wrapper; a run resets them with reset_launches()
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ("join_ladder", "gather_ladder", "segment_reduce", "rank_merge"), 0)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("ladder_consumer.cu", "segment_reduce.cu", "rank_merge.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# slots of the by-value argument block (csrc/common.cuh ARGS_MAX, MAX_COLS)
+ARGS_MAX = 448
+MAX_COLS = 16
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the port's kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build(verbose: bool = False) -> Dict[str, Path]:
+    """Compile every source into its own shared library, with one ``nvcc``
+    per source, all started together. Libraries already built for the same
+    sources and flags are reused. Returns {source stem: library path}.
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    out_dir = BUILD_DIR / digest.hexdigest()[:16]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {Path(s).stem: out_dir / (Path(s).stem + ".so") for s in SOURCES}
+    todo = [(src, stem, so) for src, (stem, so) in zip(SOURCES, libs.items())
+            if not so.exists()]
+    nvcc = _nvcc() if todo else None
+    procs = []
+    for src, stem, so in todo:
+        tmp = so.with_name(f"{stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", str(tmp), str(CSRC / src)]
+        procs.append((so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for so, tmp, proc in procs:  # wait for every one, failed or not
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{so.stem}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        if verbose and log.strip():
+            print(f"[nvcc {so.stem}]\n{log}", flush=True)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return libs
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if hasattr(lib, "ladder_consumer"):
+        lib.ladder_scratch_elems.argtypes = [I, L]
+        lib.ladder_scratch_elems.restype = L
+        lib.ladder_consumer.argtypes = [P, I, I, I, L, L, I, P, P, P, P, P]
+        lib.ladder_consumer.restype = I
+    if hasattr(lib, "segment_reduce"):
+        lib.segment_reduce.argtypes = [P, I, I, L, L, I, P, P]
+        lib.segment_reduce.restype = I
+    if hasattr(lib, "rank_merge"):
+        lib.rank_merge.argtypes = [P, I, L, L, P]
+        lib.rank_merge.restype = I
+
+
+def load_library(stem: str) -> ctypes.CDLL:
+    """The loaded kernel library built from ``csrc/<stem>.cu`` (building
+    all of them at first use). Raises when CUDA is not available."""
+    with _LOAD_LOCK:
+        if not _LIBS:
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available: the port's "
+                                   "kernels need an NVIDIA GPU")
+            for name, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                _declare(lib)
+                _LIBS[name] = lib
+    return _LIBS[stem]
+
+
+# ---------------------------------------------------------------------------
+# Launch plumbing
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+class _ArgBlock:
+    """The by-value argument block of one launch (``Args`` in
+    csrc/common.cuh). Keeps every int64 column it hands out referenced
+    until the launch is queued."""
+
+    def __init__(self, device: torch.device, n_slots: int, what: str):
+        if n_slots > ARGS_MAX:
+            raise ValueError(f"{what}: {n_slots} argument slots exceed the "
+                             f"kernel's {ARGS_MAX}")
+        self.device = device
+        self.slots = (ctypes.c_longlong * ARGS_MAX)()
+        self.keep: List[torch.Tensor] = []
+        self.what = what
+
+    def col(self, slot: int, t: torch.Tensor) -> None:
+        """Put column ``t`` (widened to contiguous int64) in ``slot``."""
+        if not t.is_cuda or t.device != self.device:
+            raise ValueError(f"{self.what}: needs CUDA tensors on "
+                             f"{self.device}, got one on {t.device}")
+        if t.dtype.is_floating_point or t.dtype.is_complex:
+            raise ValueError(f"{self.what}: integer and bool columns only, "
+                             f"got {t.dtype}")
+        t = t.to(torch.int64).contiguous()
+        self.keep.append(t)
+        self.slots[slot] = t.data_ptr()
+
+    def out(self, slot: int, n: int) -> torch.Tensor:
+        t = torch.empty((n,), dtype=torch.int64, device=self.device)
+        self.slots[slot] = t.data_ptr()
+        return t
+
+    def launch(self, fn, *argv) -> None:
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = fn(ctypes.addressof(self.slots), *argv, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.what}: kernel launch failed with CUDA "
+                               f"error {rc}")
+
+
+def _cuda_device(t: torch.Tensor, what: str) -> torch.device:
+    if not t.is_cuda:
+        raise ValueError(f"{what}: needs a CPU tensor (plain version) or a "
+                         f"CUDA tensor (kernel), got one on {t.device}")
+    return t.device
+
+
+# ---------------------------------------------------------------------------
+# The stitched chain: the ladder consumers' plain versions are built of it
+# ---------------------------------------------------------------------------
+
+
+def lex_probe_ladder(tables: Sequence[Cols], query_cols: Cols,
+                     side: str = "left") -> torch.Tensor:
+    """Insertion points of ``query`` rows into EVERY sorted table: [K, m]
+    int32, lane (k, i) == ``lex_probe(tables[k], query_cols, side)[i]``;
+    each level's lanes are clamped to its own row count."""
+    assert tables, "lex_probe_ladder: empty ladder"
+    m = query_cols[0].shape[0]
+    dev = query_cols[0].device
+    caps = [t[0].shape[0] for t in tables]
+    strict = side == "left"
+    lo = torch.zeros((len(tables), m), dtype=torch.int64, device=dev)
+    hi = torch.stack([torch.full((m,), c, dtype=torch.int64, device=dev)
+                      for c in caps])
+    for _ in range(max(c.bit_length() for c in caps)):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = torch.stack([
+            kernels._lex_le_rows(t, torch.clamp(mid[k], 0, max(c - 1, 0)),
+                                 query_cols, strict)
+            for k, (t, c) in enumerate(zip(tables, caps))])
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo.to(torch.int32)
+
+
+def expand_ladder(lo: torch.Tensor, hi: torch.Tensor, out_cap: int):
+    """Flatten [K, m] per-(level, query) ranges into ONE buffer, level-major
+    (level 0's matches, query-major within it, then level 1's, ...).
+    Returns ``(level, qrow, src, valid, total)``, each [out_cap] except the
+    unclamped int64 ``total``."""
+    K, m = lo.shape
+    flat, src, valid, total = kernels.expand_ranges(
+        lo.reshape(K * m), hi.reshape(K * m), out_cap)
+    flat = flat.to(torch.int64)
+    level = flat // m
+    return level, flat - level * m, src, valid, total
+
+
+def _select_gather(cols_per_level: Sequence[Cols], level: torch.Tensor,
+                   src: torch.Tensor) -> Cols:
+    """Gather column values from the level each output slot resolved to:
+    one clamped gather per level per column, combined by level-id select."""
+    if not cols_per_level[0]:
+        return ()
+    src = src.to(torch.int64)
+    outs: List[torch.Tensor] = []
+    for ci in range(len(cols_per_level[0])):
+        acc = None
+        for k, cols in enumerate(cols_per_level):
+            c = cols[ci]
+            v = c[torch.clamp(src, 0, c.shape[0] - 1)]
+            acc = v if acc is None else torch.where(level == k, v, acc)
+        outs.append(acc)
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# Ladder consumer: join_ladder / gather_ladder
+# ---------------------------------------------------------------------------
+
+
+def _ladder_consumer(key_tabs, gather_tabs, weight_tab, qlo_cols, qhi_cols,
+                     qmask: torch.Tensor, out_cap: int, join: bool):
+    """One launch of csrc/ladder_consumer.cu. Returns raw ``(qrow int32,
+    gathered int64 cols, w int64, total)``: slots at or past ``total``
+    hold zeros; ``total`` is the unclamped match count (0-d, on the
+    device)."""
+    what = "join_ladder" if join else "gather_ladder"
+    dev = _cuda_device(qmask, what)
+    K, nk, m = len(weight_tab), len(qlo_cols), qmask.shape[0]
+    ng = len(gather_tabs[0])
+    if not (K >= 1 and nk >= 1 and m >= 1 and out_cap >= 1):
+        raise ValueError(f"{what}: needs levels, key columns, queries and "
+                         f"out_cap >= 1 (K={K}, nk={nk}, m={m}, "
+                         f"out_cap={out_cap})")
+    if nk > MAX_COLS:
+        raise ValueError(f"{what}: {nk} key columns exceed {MAX_COLS}")
+    q = (nk + ng + 1) * K
+    caps = q + 2 * nk + 1
+    out = caps + K
+    args = _ArgBlock(dev, out + ng, what)
+    for k in range(K):
+        for c in range(nk):
+            args.col(c * K + k, key_tabs[k][c])
+        for c in range(ng):
+            args.col((nk + c) * K + k, gather_tabs[k][c])
+        args.col((nk + ng) * K + k, weight_tab[k])
+        args.slots[caps + k] = weight_tab[k].shape[0]
+    for c in range(nk):
+        args.col(q + c, qlo_cols[c])
+        args.col(q + nk + c, qhi_cols[c])
+    args.col(q + 2 * nk, qmask)
+    gathered = tuple(args.out(out + c, out_cap) for c in range(ng))
+    qrow = torch.empty((out_cap,), dtype=torch.int32, device=dev)
+    w = torch.empty((out_cap,), dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    lib = load_library("ladder_consumer")
+    scratch = torch.empty((lib.ladder_scratch_elems(K, m),),
+                          dtype=torch.int64, device=dev)
+    args.launch(lib.ladder_consumer, K, nk, ng, m, out_cap, int(join),
+                qrow.data_ptr(), w.data_ptr(), total.data_ptr(),
+                scratch.data_ptr())
+    LAUNCHES[what] += 1
+    return qrow, gathered, w, total
+
+
+def join_ladder(delta_keys: Cols, delta_w: torch.Tensor,
+                levels: Sequence, nk: int, out_cap: int):
+    """The incremental-join core over a trace ladder: both probes per delta
+    row, dead rows zeroed, level-major expansion into ``out_cap`` slots,
+    the level's vals gathered and ``w = delta_w * level_w``. Returns
+    ``(qrow, level_val_cols, w, valid, total)`` as ``join_ladder_pallas``
+    does: dead slots hold qrow 0, vals 0 and weight 0; ``total`` is the
+    unclamped match count."""
+    if _on_cpu(delta_w):
+        return join_ladder_plain(delta_keys, delta_w, levels, nk, out_cap)
+    qrow, gathered, w, total = _ladder_consumer(
+        [lvl.keys[:nk] for lvl in levels], [lvl.vals for lvl in levels],
+        [lvl.weights for lvl in levels], delta_keys, delta_keys, delta_w,
+        out_cap, join=True)
+    valid = torch.arange(out_cap, device=w.device) < total
+    lvals = tuple(c.to(v.dtype) for c, v in zip(gathered, levels[0].vals))
+    return qrow, lvals, w.to(delta_w.dtype), valid, total
+
+
+def join_ladder_plain(delta_keys: Cols, delta_w: torch.Tensor,
+                      levels: Sequence, nk: int, out_cap: int):
+    """Plain version of :func:`join_ladder`: the stitched probe-ladder /
+    expand / gather chain (reference ``cursor.join_ladder``, XLA branch)."""
+    tables = [lvl.keys[:nk] for lvl in levels]
+    lo = lex_probe_ladder(tables, delta_keys, side="left")
+    hi = lex_probe_ladder(tables, delta_keys, side="right")
+    live = (delta_w != 0)[None, :]
+    lo = torch.where(live, lo, 0)
+    hi = torch.where(live, hi, lo)
+    level, qrow, src, valid, total = expand_ladder(lo, hi, out_cap)
+    (lw,) = _select_gather([(lvl.weights,) for lvl in levels], level,
+                                  src)
+    w = torch.where(valid, delta_w[qrow] * lw, 0).to(delta_w.dtype)
+    rvals = tuple(torch.where(valid, c, 0) for c in _select_gather(
+        [lvl.vals for lvl in levels], level, src))
+    qrow = torch.where(valid, qrow, 0).to(torch.int32)
+    return qrow, rvals, w, valid, total
+
+
+def _gather_tabs(levels, nk: int, gather_keys: int):
+    return [(*lvl.keys[nk - gather_keys:nk], *lvl.vals) if gather_keys
+            else tuple(lvl.vals) for lvl in levels]
+
+
+def gather_ladder(qkeys: Cols, qlive: torch.Tensor, levels: Sequence,
+                  out_cap: int, qhi_keys: Cols = None, gather_keys: int = 0):
+    """Every row of all levels matching the m group keys (or, with
+    ``qhi_keys``, the key range [qkeys[i], qhi_keys[i]]), with
+    ``gather_keys`` trailing key columns ahead of the vals. Returns
+    ``((qrow, vals, w), total)`` as ``gather_ladder_pallas`` does: dead
+    slots hold qrow == q_cap, sentinel vals and weight 0; ``total`` is the
+    unclamped match count."""
+    if _on_cpu(qlive):
+        return gather_ladder_plain(qkeys, qlive, levels, out_cap, qhi_keys,
+                                   gather_keys)
+    nk = len(qkeys)
+    gtabs = _gather_tabs(levels, nk, gather_keys)
+    qrow, gathered, w, total = _ladder_consumer(
+        [lvl.keys[:nk] for lvl in levels], gtabs,
+        [lvl.weights for lvl in levels], qkeys,
+        qkeys if qhi_keys is None else qhi_keys, qlive, out_cap, join=False)
+    dead = torch.arange(out_cap, device=w.device) >= total
+    vals = tuple(c.to(g.dtype).masked_fill(
+        dead, kernels.sentinel_scalar(g.dtype))
+        for c, g in zip(gathered, gtabs[0]))
+    qrow = qrow.masked_fill(dead, qlive.shape[-1])
+    return (qrow, vals, w.to(levels[0].weights.dtype)), total
+
+
+def gather_ladder_plain(qkeys: Cols, qlive: torch.Tensor, levels: Sequence,
+                        out_cap: int, qhi_keys: Cols = None,
+                        gather_keys: int = 0):
+    """Plain version of :func:`gather_ladder`: the stitched chain
+    (reference ``cursor.gather_ladder``, XLA branch)."""
+    nk = len(qkeys)
+    q_cap = qlive.shape[-1]
+    tables = [lvl.keys[:nk] for lvl in levels]
+    lo = lex_probe_ladder(tables, qkeys, side="left")
+    hi = lex_probe_ladder(tables, qkeys if qhi_keys is None
+                                 else qhi_keys, side="right")
+    live = qlive[None, :] != 0
+    lo = torch.where(live, lo, 0)
+    # probes are monotone: with distinct bounds an empty range (qhi < qlo)
+    # lands hi <= lo, and the clamp makes it gather nothing
+    hi = torch.where(live, torch.maximum(hi, lo), lo)
+    level, qrow, src, valid, total = expand_ladder(lo, hi, out_cap)
+    (lw,) = _select_gather([(lvl.weights,) for lvl in levels], level,
+                                  src)
+    w = torch.where(valid, lw, 0)
+    vals = tuple(v.masked_fill(~valid, kernels.sentinel_scalar(v.dtype))
+                 for v in _select_gather(
+                     _gather_tabs(levels, nk, gather_keys), level, src))
+    qrow = torch.where(valid, qrow, q_cap).to(torch.int32)
+    return (qrow, vals, w), total
+
+
+# ---------------------------------------------------------------------------
+# Segment reduce
+# ---------------------------------------------------------------------------
+
+SEG_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3, "avg": 4, "present": 5}
+
+
+def _seg_ident(op: str, src: torch.dtype) -> int:
+    """Empty-segment fill of one op: what the segment_* formulation leaves
+    there (min: the source dtype's max; max and present: its min; 0 for
+    the additive ops)."""
+    if op == "min":
+        return torch.iinfo(src).max
+    if op in ("max", "present"):
+        return torch.iinfo(src).min
+    return 0
+
+
+def segment_reduce(spec, val_cols: Cols, weights: torch.Tensor,
+                   seg: torch.Tensor, num_segments: int, out_dtypes):
+    """A whole reduce spec ``((op, src_col), ...)`` per segment id, each
+    output narrowed to its ``out_dtypes`` entry (see the plain version for
+    the semantics of each op)."""
+    if _on_cpu(weights):
+        return segment_reduce_plain(spec, val_cols, weights, seg,
+                                    num_segments, out_dtypes)
+    what = "segment_reduce"
+    dev = _cuda_device(weights, what)
+    for (op, _), d in zip(spec, out_dtypes):
+        if op == "avg" and d != torch.int64:
+            # the kernel divides int64 accumulators: narrower avg results
+            # would differ from a narrow accumulation
+            raise ValueError(f"{what}: avg needs an int64 result, got {d}")
+    nv, nops, n = len(val_cols), len(spec), weights.shape[0]
+    if num_segments < 1:
+        raise ValueError(f"{what}: num_segments must be >= 1")
+    args = _ArgBlock(dev, nv + 2 + 4 * nops, what)
+    for c, v in enumerate(val_cols):
+        args.col(c, v)
+    args.col(nv, weights)
+    args.col(nv + 1, seg)
+    for o, (op, col) in enumerate(spec):
+        src = val_cols[col].dtype if op in ("min", "max") else torch.int64
+        args.slots[nv + 2 + 3 * o] = SEG_OPS[op]
+        args.slots[nv + 3 + 3 * o] = col
+        args.slots[nv + 4 + 3 * o] = _seg_ident(op, src)
+    outs = [args.out(nv + 2 + 3 * nops + o, num_segments)
+            for o in range(nops)]
+    wsum = torch.empty((num_segments,), dtype=torch.int64, device=dev)
+    args.launch(load_library("segment_reduce").segment_reduce, nv, nops, n,
+                num_segments, int(any(op == "avg" for op, _ in spec)),
+                wsum.data_ptr())
+    LAUNCHES[what] += 1
+    return tuple(o.to(d) for o, d in zip(outs, out_dtypes))
+
+
+def segment_reduce_plain(spec, val_cols: Cols, weights: torch.Tensor,
+                         seg: torch.Tensor, num_segments: int, out_dtypes):
+    """Plain version of :func:`segment_reduce` (the reference's
+    ``jax.ops.segment_*`` formulation): count = sum max(w, 0); sum =
+    sum v * max(w, 0); min/max over rows with w > 0, the source dtype's
+    identity for empty segments; avg = truncating sum / max(count, 1);
+    present = max of (w > 0) over every row, int64-min when empty.
+    Out-of-range ids are dropped."""
+    wpos = torch.clamp(weights, min=0)
+    outs = []
+    for op, col in spec:
+        if op == "count":
+            out = kernels.segment_sum(wpos, seg, num_segments)
+        elif op in ("sum", "avg"):
+            out = kernels.segment_sum(val_cols[col] * wpos, seg, num_segments)
+            if op == "avg":
+                c = torch.clamp(kernels.segment_sum(wpos, seg, num_segments),
+                                min=1)
+                out = torch.where(out >= 0, out // c, -((-out) // c))
+        elif op in ("min", "max"):
+            v = val_cols[col]
+            fill = _seg_ident(op, v.dtype)
+            out = kernels.segment_extreme(
+                torch.where(weights > 0, v, fill), seg, num_segments,
+                largest=op == "max")
+        elif op == "present":
+            out = kernels.segment_extreme(
+                (weights > 0).to(torch.int64), seg, num_segments,
+                largest=True)
+        else:
+            raise ValueError(f"unknown segment-reduce op {op!r}")
+        outs.append(out)
+    return tuple(o.to(d) for o, d in zip(outs, out_dtypes))
+
+
+# ---------------------------------------------------------------------------
+# Rank-merge scatter
+# ---------------------------------------------------------------------------
+
+
+def rank_merge_scatter(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,
+                       w_b: torch.Tensor):
+    """The rank-merge inner loop: cross-rank both sorted row sets and write
+    every row (and weight) to its index plus its rank. Returns the
+    pre-netting ``(cols, w)`` of capacity na + nb in a's dtypes."""
+    if _on_cpu(w_a):
+        return rank_merge_scatter_plain(cols_a, w_a, cols_b, w_b)
+    what = "rank_merge"
+    dev = _cuda_device(w_a, what)
+    ncols = len(cols_a)
+    if not 1 <= ncols <= MAX_COLS:
+        raise ValueError(f"{what}: needs 1..{MAX_COLS} columns, got {ncols}")
+    na, nb = w_a.shape[0], w_b.shape[0]
+    args = _ArgBlock(dev, 3 * ncols + 3, what)
+    for c in range(ncols):
+        args.col(c, cols_a[c])
+        args.col(ncols + 1 + c, cols_b[c])
+    args.col(ncols, w_a)
+    args.col(2 * ncols + 1, w_b)
+    outs = [args.out(2 * ncols + 2 + c, na + nb) for c in range(ncols + 1)]
+    args.launch(load_library("rank_merge").rank_merge, ncols, na, nb)
+    LAUNCHES[what] += 1
+    return (tuple(o.to(c.dtype) for o, c in zip(outs, cols_a)),
+            outs[ncols].to(w_a.dtype))
+
+
+def rank_merge_scatter_plain(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,
+                             w_b: torch.Tensor):
+    """Plain version of :func:`rank_merge_scatter`: two vectorized binary
+    searches and position scatters into sentinel-filled buffers."""
+    na, nb = w_a.shape[0], w_b.shape[0]
+    dev = w_a.device
+    ra = kernels.lex_probe(cols_b, cols_a, side="left")   # b-rows < a_i
+    rb = kernels.lex_probe(cols_a, cols_b, side="right")  # a-rows <= b_j
+    pos_a = torch.arange(na, device=dev) + ra
+    pos_b = torch.arange(nb, device=dev) + rb
+    out_cols = []
+    for ca, cb in zip(cols_a, cols_b):
+        buf = kernels.sentinel_fill((na + nb,), ca.dtype, dev)
+        buf[pos_a] = ca
+        buf[pos_b] = cb.to(ca.dtype)
+        out_cols.append(buf)
+    w = torch.zeros((na + nb,), dtype=w_a.dtype, device=dev)
+    w[pos_a] = w_a
+    w[pos_b] = w_b.to(w_a.dtype)
+    return tuple(out_cols), w
