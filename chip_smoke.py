@@ -10,19 +10,26 @@ Phases, each of which fails the run (nonzero exit, no result line):
              all at once) and print the build seconds;
 3. kernels — each kernel entry point against its plain PyTorch version
              on the card, exactly, on adversarial cases (empty levels,
-             dead rows, duplicates, full capacity, total > out_cap,
-             empty / retraction-only / out-of-range segments) and on
-             q4-sized inputs (ladders up to 2M rows, 100k-row deltas);
-4. q4      — Nexmark q4 on the host runtime on the card at 100,000 events
-             per tick: 4 warm ticks then 20 measured (2,000,000 events, a
-             cut of Nexmark's usual 100M made for the run's time limit),
-             with every kernel's launch count read around the run and
-             per measured tick, and the accumulated output held against a
-             numpy oracle of q4;
-5. cross   — the first 3 ticks of 10,000 events through the port on the
-             CPU (plain versions) and on the card: equal rows per tick;
+             dead and all-sentinel queries, duplicates, full capacity,
+             total > out_cap, no gathered columns, empty /
+             retraction-only / out-of-range segments) and on inputs of
+             the queries' sizes (ladders up to 2M rows, 100k-row deltas);
+4. queries — Nexmark q4, q3, q8 and q15, one after the other, each on the
+             host runtime on the card at 100,000 events per tick: 4 warm
+             ticks then 20 measured (2,000,000 events, a cut of Nexmark's
+             usual 100M made for the run's time limit), with the launch
+             counts set to 0 just before each query's run and read just
+             after it (and per measured tick), the kernels its path must
+             launch checked, and the accumulated output held against a
+             numpy oracle of the query over all events;
+5. cross   — for each query, the first 3 ticks of 10,000 events through
+             the port on the CPU (plain versions) and on the card: equal
+             rows per tick;
 6. timing  — each kernel, its plain version and (where one exists) one
-             PyTorch library call, on the largest inputs q4 gave it.
+             PyTorch library call, on the largest inputs the queries gave
+             it: ``ms`` per call by CUDA events (host gaps between
+             launches included), ``device_ms`` the kernel's device time
+             alone by torch.profiler.
 
 Output: the phase summaries, then one line {"kernels": [...]}, then the
 nvidia-smi line, then the last line
@@ -52,16 +59,26 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 INT64_OPS_PER_S = 132 * 64 * 1.98e9 / 2
 
 REPLACES = {
+    "lex_probe_ladder": "dbsp_tpu/zset/pallas_kernels.py:145",
     "join_ladder": "dbsp_tpu/zset/pallas_kernels.py:338",
     "gather_ladder": "dbsp_tpu/zset/pallas_kernels.py:357",
     "segment_reduce": "dbsp_tpu/zset/pallas_kernels.py:430",
     "rank_merge": "dbsp_tpu/zset/pallas_kernels.py:519",
 }
 SOURCE = {
+    "lex_probe_ladder": "dbsp_tpu_torch/csrc/probe_ladder.cu",
     "join_ladder": "dbsp_tpu_torch/csrc/ladder_consumer.cu",
     "gather_ladder": "dbsp_tpu_torch/csrc/ladder_consumer.cu",
     "segment_reduce": "dbsp_tpu_torch/csrc/segment_reduce.cu",
     "rank_merge": "dbsp_tpu_torch/csrc/rank_merge.cu",
+}
+# the queries driven on the card, in order, and the kernels each one's
+# path must launch
+QUERIES = {
+    "q4": ("join_ladder", "gather_ladder", "segment_reduce", "rank_merge"),
+    "q3": ("join_ladder", "rank_merge"),
+    "q8": ("lex_probe_ladder", "join_ladder", "rank_merge"),
+    "q15": ("lex_probe_ladder", "gather_ladder", "rank_merge"),
 }
 
 
@@ -126,15 +143,21 @@ class Checker:
 # ---------------------------------------------------------------------------
 
 
-def consolidated(rng, n_live, cap, dev, nk=2, nv=1, key_range=40):
+def consolidated(rng, n_live, cap, dev, nk=2, nv=1, key_range=40,
+                 spec=None, extra=()):
     """A consolidated batch of up to ``n_live`` random rows (weights in
     [-3, 3] without 0) at capacity ``cap`` — dead rows past the live
-    prefix."""
+    prefix. Column i is drawn from [lo, hi) as ``spec[i] = (lo, hi, numpy
+    dtype)``, by default ``nk + nv`` int64 columns in [0, key_range); the
+    first ``nk`` are keys. ``extra`` holds the columns of more rows to
+    add (duplicates sum)."""
     from dbsp_tpu_torch.zset.batch import Batch
 
-    cols = [rng.integers(0, key_range, n_live).astype(np.int64)
-            for _ in range(nk + nv)]
-    w = rng.integers(-3, 4, n_live)
+    spec = spec or ((0, key_range, np.int64),) * (nk + nv)
+    cols = [rng.integers(lo, hi, n_live).astype(dt) for lo, hi, dt in spec]
+    if len(extra):
+        cols = [np.concatenate([x, c]) for x, c in zip(extra, cols)]
+    w = rng.integers(-3, 4, len(cols[0]))
     w[w == 0] = 1
     return Batch.from_columns(cols[:nk], cols[nk:], w, cap=cap, device=dev)
 
@@ -158,24 +181,21 @@ def adversarial_ladders(rng, dev):
     yield [full, consolidated(rng, 30, 64, dev, key_range=8)]
 
 
-def bids_like(rng, n, cap, dev, key_range):
-    """A consolidated batch of the bids schema (int64 key; int64, int64,
-    int32, int64 values), n random rows."""
-    import torch
-
-    from dbsp_tpu_torch.zset.batch import Batch
-
-    keys = [torch.from_numpy(rng.integers(0, key_range, n))]
-    vals = [torch.from_numpy(rng.integers(0, 1 << 40, n)),
-            torch.from_numpy(rng.integers(1, 10_000_000, n)),
-            torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)),
-            torch.from_numpy(rng.integers(0, 1 << 41, n))]
-    return Batch.from_columns(keys, vals, np.ones(n, np.int64), cap=cap,
-                              device=dev)
+def bids_row(key_range):
+    """The bids schema: int64 key; int64, int64, int32, int64 values."""
+    return ((0, key_range, np.int64), (0, 1 << 40, np.int64),
+            (1, 10_000_000, np.int64), (0, 16, np.int32),
+            (0, 1 << 41, np.int64))
 
 
 SPEC = (("count", 0), ("sum", 0), ("min", 0), ("max", 1), ("avg", 1),
         ("present", 0))
+
+
+# q8's distinct input: (person id, window start) keys, int32 name value
+Q8_ROW = ((1000, 3000, np.int64), (0, 40, np.int64), (0, 1000, np.int32))
+# q15's distinct input: (day, bidder) keys, no value
+Q15_ROW = ((0, 4, np.int64), (0, 500_000, np.int64))
 
 
 def seg_case(rng, n, S, dev):
@@ -200,6 +220,54 @@ def seg_out_dtypes(spec, vals, w):
     return tuple(_seg_out_dtype(op, c, vals, w) for op, c in spec)
 
 
+def check_lex_probe(ck: Checker, rng, dev) -> None:
+    """lex_probe_ladder against its plain version, both sides."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    def both_sides(what, tables, queries):
+        for side in ("left", "right"):
+            ck.check("lex_probe_ladder", f"{what} side {side}",
+                     ck_mod.lex_probe_ladder, ck_mod.lex_probe_ladder_plain,
+                     tables, queries, side)
+
+    i64max = torch.iinfo(torch.int64).max
+    sentinel = tuple(torch.full((8,), i64max, device=dev) for _ in range(2))
+    empty = tuple(torch.empty((0,), dtype=torch.int64, device=dev)
+                  for _ in range(2))
+    for li, ladder in enumerate(adversarial_ladders(rng, dev)):
+        # 20 rows at capacity 32: the tail is dead (weight 0, sentinel keys)
+        delta = consolidated(rng, 20, 32, dev)
+        keys = [lvl.keys for lvl in ladder]
+        both_sides(f"ladder {li} keys, dead tail", keys, delta.keys)
+        both_sides(f"ladder {li} all-sentinel queries", keys, sentinel)
+        both_sides(f"ladder {li} full rows", [lvl.cols for lvl in ladder],
+                   delta.cols)
+        both_sides(f"ladder {li} + a cap-0 level", [*keys, empty],
+                   delta.keys)
+    # q8-shaped: full-row probes of (id, window) keys + an int32 name
+    ladder = [consolidated(rng, n, cap, dev, spec=Q8_ROW)
+              for n, cap in ((30_000, 1 << 15), (6_000, 1 << 13),
+                             (1_500, 1 << 11))]
+    # 1,000 live rows of the deepest level, which a full-row probe finds
+    hits = [c[:1_000].cpu().numpy() for c in ladder[0].cols]
+    delta = consolidated(rng, 1_000, 1 << 11, dev, spec=Q8_ROW, extra=hits)
+    both_sides("q8-shaped", [lvl.cols for lvl in ladder], delta.cols)
+    # q15-shaped: (day, bidder) keys, no value column
+    ladder = [consolidated(rng, n, cap, dev, spec=Q15_ROW)
+              for n, cap in ((60_000, 1 << 16), (3_000, 1 << 12),
+                             (200, 1 << 8))]
+    delta = consolidated(rng, 4_000, 1 << 12, dev, spec=Q15_ROW)
+    both_sides("q15-shaped", [lvl.cols for lvl in ladder], delta.cols)
+    # large: 8 levels from 2M rows down, 100k queries of a 131,072 cap
+    ladder = [consolidated(rng, (1 << c) - (1 << (c - 3)), 1 << c, dev,
+                           spec=Q15_ROW) for c in range(21, 13, -1)]
+    delta = consolidated(rng, 100_000, 1 << 17, dev, spec=Q15_ROW)
+    both_sides("large (K 8, 2M rows, m 131072)",
+               [lvl.cols for lvl in ladder], delta.cols)
+
+
 def check_kernels(ck: Checker, dev) -> None:
     import torch
 
@@ -221,11 +289,35 @@ def check_kernels(ck: Checker, dev) -> None:
                 ck.check("gather_ladder", f"ladder {li} {mode} {out_cap}",
                          ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
                          delta.keys, qlive, ladder, out_cap, **kw)
+    # -- the same with no gathered column (ng = 0): q8's auction side
+    for li in range(2):
+        ladder = [consolidated(rng, max(2, c // 3), c, dev, nv=0)
+                  for c in ((64, 32), (256, 64, 16))[li]]
+        delta = consolidated(rng, 20, 32, dev, nv=0)
+        for out_cap in (1024, 4):
+            ck.check("join_ladder", f"ng 0 ladder {li} out_cap {out_cap}",
+                     ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                     delta.keys, delta.weights, ladder, 2, out_cap)
+            ck.check("gather_ladder", f"ng 0 ladder {li} {out_cap}",
+                     ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                     delta.keys, delta.weights != 0, ladder, out_cap)
+    # q8-sized: a persons delta against the auctions-by-(seller, window)
+    # trace, which has no value column
+    a_row = Q8_ROW[:2]
+    ladder = [consolidated(rng, n, cap, dev, spec=a_row)
+              for n, cap in ((120_000, 1 << 17), (30_000, 1 << 15),
+                             (6_000, 1 << 13))]
+    delta = consolidated(rng, 2_000, 1 << 11, dev, spec=Q8_ROW)
+    ck.check("join_ladder", "q8-sized ng 0", ck_mod.join_ladder,
+             ck_mod.join_ladder_plain, delta.keys, delta.weights, ladder, 2,
+             1 << 14)
+    check_lex_probe(ck, rng, dev)
     # -- q4-sized ladder: bids-schema levels up to 2M rows, 100k delta
-    big = [bids_like(rng, n, cap, dev, key_range=60_000)
+    bids = bids_row(60_000)
+    big = [consolidated(rng, n, cap, dev, nk=1, spec=bids)
            for n, cap in ((1_900_000, 1 << 21), (400_000, 1 << 19),
                           (90_000, 1 << 17))]
-    delta = bids_like(rng, 92_000, 1 << 17, dev, key_range=60_000)
+    delta = consolidated(rng, 92_000, 1 << 17, dev, nk=1, spec=bids)
     total = int(ck_mod.join_ladder_plain(delta.keys, delta.weights, big, 1,
                                          1 << 20)[4])
     for out_cap in (1 << 23, total // 2):
@@ -268,7 +360,7 @@ def check_kernels(ck: Checker, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# q4
+# Queries
 # ---------------------------------------------------------------------------
 
 
@@ -300,32 +392,81 @@ def accumulate(acc: dict, delta: dict) -> None:
             del acc[r]
 
 
-def build_q4(device=None):
+def q3_oracle(cols) -> dict:
+    """Sellers in the q3 states with auctions in category 10: (auction id,
+    name, city, state) per matching auction."""
+    from dbsp_tpu_torch.nexmark.queries import Q3_CATEGORY, Q3_STATES
+
+    p, a = cols["persons"], cols["auctions"]
+    keep = np.isin(p["state"], Q3_STATES)
+    sellers = dict(zip(p["id"][keep].tolist(),
+                       zip(p["name"][keep].tolist(), p["city"][keep].tolist(),
+                           p["state"][keep].tolist())))
+    cat = a["category"] == Q3_CATEGORY
+    return {(aid, *sellers[s]): 1 for aid, s in
+            zip(a["id"][cat].tolist(), a["seller"][cat].tolist())
+            if s in sellers}
+
+
+def q8_oracle(cols) -> dict:
+    """(person id, window start, name) of every person who created an
+    auction in the 10 s window they registered in."""
+    from dbsp_tpu_torch.nexmark.queries import Q8_WINDOW_MS as W
+
+    p, a = cols["persons"], cols["auctions"]
+    opened = set(zip(a["seller"].tolist(),
+                     (a["date_time"] // W * W).tolist()))
+    return {(pid, w, name): 1 for pid, w, name in
+            zip(p["id"].tolist(), (p["date_time"] // W * W).tolist(),
+                p["name"].tolist()) if (pid, w) in opened}
+
+
+def q15_oracle(cols) -> dict:
+    """(day, number of distinct bidders that day)."""
+    from dbsp_tpu_torch.nexmark.queries import DAY_MS
+
+    b = cols["bids"]
+    pairs = np.unique(np.stack([b["date_time"] // DAY_MS, b["bidder"]], 1),
+                      axis=0)
+    days, counts = np.unique(pairs[:, 0], return_counts=True)
+    return {(int(d), int(c)): 1 for d, c in zip(days, counts)}
+
+
+ORACLES = {"q4": q4_oracle, "q3": q3_oracle, "q8": q8_oracle,
+           "q15": q15_oracle}
+
+
+def build_query(name: str, device=None):
     from dbsp_tpu_torch.circuit import Runtime
     from dbsp_tpu_torch.nexmark import build_inputs, queries
 
+    query = getattr(queries, name)
+
     def build(c):
         streams, handles = build_inputs(c)
-        return handles, queries.q4(*streams).output()
+        return handles, query(*streams).output()
 
     return Runtime.init_circuit(1, build, device=device)
 
 
 class Recorder:
     """Wraps a kernel entry point to keep the arguments of its largest
-    call on the main path (for timing at the shapes q4 gives it)."""
+    call on the main paths (for timing at the shapes the queries give
+    it), and which query made it."""
+
+    query = None  # the query being driven
 
     def __init__(self, module, name: str, size_fn):
         self.module, self.name, self.size_fn = module, name, size_fn
         self.orig = getattr(module, name)
-        self.best = (-1, None, None)
+        self.best = (-1, None, None, None)
 
     def __call__(self, *args, **kw):
         size = self.size_fn(*args, **kw)
         if size > self.best[0]:
             # a spine's level list changes after the tick: keep a snapshot
             self.best = (size, tuple(tuple(a) if isinstance(a, list) else a
-                                     for a in args), kw)
+                                     for a in args), kw, Recorder.query)
         return self.orig(*args, **kw)
 
     def __enter__(self):
@@ -341,17 +482,15 @@ def _ladder_size(*args, **kw):
     return sum(lvl.cap for lvl in levels) + args[1].shape[0]
 
 
-def run_q4(dev):
-    import torch
+def _probe_size(tables, query_cols, *a, **kw):
+    return sum(t[0].shape[0] for t in tables) + query_cols[0].shape[0]
 
-    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+
+def recorders():
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
-    gen = NexmarkGenerator(GeneratorConfig(seed=1))
-    handle, (handles, out) = build_q4()  # device=None: the card
-    if handle.runtime.device.type != "cuda":
-        fail(f"q4 built on {handle.runtime.device}, not the card")
-    recorders = [
+    return [
+        Recorder(ck_mod, "lex_probe_ladder", _probe_size),
         Recorder(ck_mod, "join_ladder", _ladder_size),
         Recorder(ck_mod, "gather_ladder", _ladder_size),
         Recorder(ck_mod, "segment_reduce",
@@ -359,50 +498,68 @@ def run_q4(dev):
         Recorder(ck_mod, "rank_merge_scatter",
                  lambda ca, wa, cb, wb: wa.shape[0] + wb.shape[0]),
     ]
+
+
+def run_query(name: str, all_events: dict):
+    """Drive one query on the card for WARM_TICKS + TICKS ticks, with the
+    launch counts set to 0 just before and read just after; hold the
+    accumulated output to the query's oracle. Returns (launches over the
+    run, launches per measured tick)."""
+    import torch
+
+    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    gen = NexmarkGenerator(GeneratorConfig(seed=1))
+    handle, (handles, out) = build_query(name)  # device=None: the card
+    if handle.runtime.device.type != "cuda":
+        fail(f"{name} built on {handle.runtime.device}, not the card")
+    Recorder.query = name
     acc: dict = {}
-    with contextlib.ExitStack() as stack:
-        for r in recorders:
-            stack.enter_context(r)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ck_mod.reset_launches()
-        n = 0
-        for _ in range(WARM_TICKS):
-            gen.feed(handles, n, n + EVENTS_PER_TICK)
-            handle.step()
-            accumulate(acc, out.take().to_dict())
-            n += EVENTS_PER_TICK
-        handle.step_times_ns.clear()
-        per_tick = {name: [] for name in ck_mod.LAUNCHES}
-        t0 = time.perf_counter()
-        for _ in range(TICKS):
-            before = dict(ck_mod.LAUNCHES)
-            gen.feed(handles, n, n + EVENTS_PER_TICK)
-            handle.step()
-            accumulate(acc, out.take().to_dict())
-            n += EVENTS_PER_TICK
-            for name, count in ck_mod.LAUNCHES.items():
-                per_tick[name].append(count - before[name])
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = dict(ck_mod.LAUNCHES)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the q4 path")
-    want = q4_oracle(gen.generate(0, n))
-    if acc != want:
-        fail(f"q4 accumulated output differs from the oracle: "
-             f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck_mod.reset_launches()
+    n = 0
+    for _ in range(WARM_TICKS):
+        gen.feed(handles, n, n + EVENTS_PER_TICK)
+        handle.step()
+        accumulate(acc, out.take().to_dict())
+        n += EVENTS_PER_TICK
+    handle.step_times_ns.clear()
+    per_tick = {k: [] for k in ck_mod.LAUNCHES}
+    t0 = time.perf_counter()
+    for _ in range(TICKS):
+        before = dict(ck_mod.LAUNCHES)
+        gen.feed(handles, n, n + EVENTS_PER_TICK)
+        handle.step()
+        accumulate(acc, out.take().to_dict())
+        n += EVENTS_PER_TICK
+        for k, count in ck_mod.LAUNCHES.items():
+            per_tick[k].append(count - before[k])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(ck_mod.LAUNCHES)
+    Recorder.query = None
+    for k in QUERIES[name]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the {name} path")
+    if n not in all_events:
+        all_events.clear()
+        all_events[n] = gen.generate(0, n)
+    want = ORACLES[name](all_events[n])
     if not want:
-        fail("q4 oracle is empty: the check would be vacuous")
+        fail(f"{name} oracle is empty: the check would be vacuous")
+    if acc != want:
+        fail(f"{name} accumulated output differs from the oracle: "
+             f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
     lat = sorted(handle.step_times_ns)
     spine_bytes = sum(sp.nbytes() for node in handle.circuit.nodes
                       for sp in (getattr(node.operator, attr, None)
                                  for attr in ("spine", "out_spine",
                                               "acc_spine"))
                       if sp is not None)
-    summary = {
-        "phase": "q4", "device": "cuda", "events_per_tick": EVENTS_PER_TICK,
+    say(json.dumps({
+        "phase": name, "device": "cuda", "events_per_tick": EVENTS_PER_TICK,
         "warm_ticks": WARM_TICKS, "ticks": TICKS,
         "events_measured": TICKS * EVENTS_PER_TICK, "events_total": n,
         "events_per_s": TICKS * EVENTS_PER_TICK / elapsed,
@@ -412,26 +569,23 @@ def run_q4(dev):
         "spine_device_bytes": spine_bytes,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches,
-        "launches_per_measured_tick": {name: [min(c), max(c)]
-                                       for name, c in per_tick.items()},
-        "output_rows": len(acc),
+        "launches_per_measured_tick": {k: [min(c), max(c)]
+                                       for k, c in per_tick.items()},
+        "output_rows": len(acc), "oracle_equal": True,
         "note": "2M measured events: a cut of Nexmark's usual 100M events, "
                 "made for the run's time limit",
-    }
-    say(json.dumps(summary))
-    captured = {r.name: r.best for r in recorders}
-    captured["rank_merge"] = captured.pop("rank_merge_scatter")
-    return launches, per_tick, captured
+    }))
+    return launches, per_tick
 
 
-def cross_check() -> int:
+def cross_check(name: str) -> int:
     """The port on the CPU (plain versions) and on the card, same events:
     equal output rows per tick. Returns the rows compared."""
     from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
 
     gen = NexmarkGenerator(GeneratorConfig(seed=1))
-    cpu_h, (cpu_in, cpu_out) = build_q4(device="cpu")
-    gpu_h, (gpu_in, gpu_out) = build_q4()
+    cpu_h, (cpu_in, cpu_out) = build_query(name, device="cpu")
+    gpu_h, (gpu_in, gpu_out) = build_query(name)
     rows = 0
     for i in range(CROSS_TICKS):
         n0, n1 = i * CROSS_EVENTS, (i + 1) * CROSS_EVENTS
@@ -441,11 +595,12 @@ def cross_check() -> int:
         gpu_h.step()
         want, got = cpu_out.to_dict(), gpu_out.to_dict()
         if got != want:
-            fail(f"cross-check tick {i}: card {sorted(got.items())[:5]} vs "
-                 f"CPU {sorted(want.items())[:5]}")
+            fail(f"{name} cross-check tick {i}: card "
+                 f"{sorted(got.items())[:5]} vs CPU "
+                 f"{sorted(want.items())[:5]}")
         rows += len(want)
     if not rows:
-        fail("cross-check compared no rows")
+        fail(f"{name} cross-check compared no rows")
     return rows
 
 
@@ -455,8 +610,11 @@ def cross_check() -> int:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Mean device time of one call, by CUDA events around ``reps`` calls
-    after two warm-up calls."""
+    """Time of one call on the card's clock: CUDA events around ``reps``
+    back-to-back calls, after two warm-up calls. It includes the host's
+    work between launches (a wrapper's argument block and ctypes call),
+    so for a short kernel it is a per-call cost; ``device_ms`` gives the
+    device time alone."""
     import torch
 
     for _ in range(2):
@@ -470,6 +628,25 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time of one call: torch.profiler's summed device time of
+    every kernel that ``reps`` calls launched, over ``reps`` (None if the
+    profiler saw no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.device_time_total for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / reps if total_us else None
 
 
 def _nbytes(t) -> int:
@@ -507,6 +684,41 @@ def ladder_bound(args, kw, join: bool):
     return nbytes, ops + out_cap * _steps(len(levels) * m)
 
 
+def probe_bound(args):
+    """Least bytes and operations of one ladder probe (one side): the
+    queries read once; per (level, query) one search of ceil(log2(cap +
+    1)) probes of every column, but no more bytes than the level holds;
+    the [K, m] int32 output written once."""
+    tables, qcols = args[:2]
+    m = qcols[0].shape[0]
+    nbytes = sum(_nbytes(q) for q in qcols) + 4 * len(tables) * m
+    ops = 0
+    for t in tables:
+        probes = m * _steps(t[0].shape[0]) * len(qcols)
+        nbytes += min(probes * 8, sum(_nbytes(c) for c in t))
+        ops += probes
+    return nbytes, ops
+
+
+def probe_library(args, kw):
+    """One batched ``torch.searchsorted`` over the sentinel-padded
+    [K, maxcap] stack of the ladder's FIRST column, clamped to each
+    level's cap: the same function for a one-column ladder only."""
+    import torch
+
+    tables, qcols = args[:2]
+    side = kw.get("side", args[2] if len(args) > 2 else "left")
+    dev = qcols[0].device
+    caps = torch.tensor([t[0].shape[0] for t in tables], device=dev)
+    stack = torch.full((len(tables), int(caps.max())),
+                       torch.iinfo(torch.int64).max, device=dev)
+    for k, t in enumerate(tables):
+        stack[k, :t[0].shape[0]] = t[0]
+    q = qcols[0].to(torch.int64).expand(len(tables), -1).contiguous()
+    return time_ms(lambda: torch.minimum(
+        torch.searchsorted(stack, q, side=side), caps[:, None]))
+
+
 def seg_bound(args):
     spec, vals, w, seg, nseg, out_dtypes = args[:6]
     used = {c for op, c in spec if op not in ("count", "present")}
@@ -527,15 +739,17 @@ def rank_bound(args):
     return 2 * n * row, ops
 
 
-def kernel_table(captured, launches, per_tick, ck: Checker):
+def kernel_table(captured, runs, ck: Checker):
+    """One row per kernel: its launches on each query's run and per
+    measured tick, and its times at the largest call the queries gave
+    it."""
     import torch
 
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     rows = []
-    for name in ("join_ladder", "gather_ladder", "segment_reduce",
-                 "rank_merge"):
-        size, args, kw = captured[name]
+    for name in REPLACES:
+        size, args, kw, query = captured[name]
         if args is None:
             fail(f"no main-path call of {name} was captured")
         if name == "rank_merge":
@@ -544,12 +758,25 @@ def kernel_table(captured, launches, per_tick, ck: Checker):
         else:
             kern = getattr(ck_mod, name)
             plain = getattr(ck_mod, name + "_plain")
-        ck.check(name, f"largest q4 call (size {size})", kern, plain,
-                 *args, **kw)
+        ck.check(name, f"largest call on the queries (size {size}, {query})",
+                 kern, plain, *args, **kw)
         ms = time_ms(lambda: kern(*args, **kw))
+        kernel_device_ms = device_ms(lambda: kern(*args, **kw))
         plain_ms = time_ms(lambda: plain(*args, **kw))
         library_ms = None
-        if name == "join_ladder":
+        extra = {}
+        if name == "lex_probe_ladder":
+            nbytes, ops = probe_bound(args)
+            library_ms = probe_library(args, kw)
+            tables, qcols = args[:2]
+            extra["shape"] = {"levels": [t[0].shape[0] for t in tables],
+                              "queries": qcols[0].shape[0],
+                              "columns": len(qcols)}
+            extra["library_note"] = (
+                "batched torch.searchsorted over the sentinel-padded "
+                "[K, maxcap] stack of the first column + clamp to each "
+                "level's cap: the same function for one key column only")
+        elif name == "join_ladder":
             nbytes, ops = ladder_bound(args, kw, join=True)
         elif name == "gather_ladder":
             nbytes, ops = ladder_bound(args, kw, join=False)
@@ -568,15 +795,22 @@ def kernel_table(captured, launches, per_tick, ck: Checker):
             nbytes, ops = rank_bound(args)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT64_OPS_PER_S * 1e3
+        by_query = {q: launches[name] for q, (launches, _) in runs.items()
+                    if launches[name]}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "launches_per_tick": sum(per_tick[name]) / len(per_tick[name]),
-            "max_abs_err": ck.max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "replaces": REPLACES[name],
+            "launches": sum(by_query.values()),
+            "launches_by_query": by_query,
+            "launches_per_tick": {
+                q: sum(per_tick[name]) / len(per_tick[name])
+                for q, (_, per_tick) in runs.items() if q in by_query},
+            "max_abs_err": ck.max_err[name], "ms": ms,
+            "device_ms": kernel_device_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "checks": ck.cases[name],
-            "timed_call_size": size,
+            "timed_call_size": size, "timed_on": query, **extra,
         })
     return rows
 
@@ -613,8 +847,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     ck_mod.build(verbose=True)
-    for stem in ("ladder_consumer", "segment_reduce", "rank_merge"):
-        ck_mod.load_library(stem)
+    for src in ck_mod.SOURCES:
+        ck_mod.load_library(src.rsplit(".", 1)[0])
     say(f"build: {time.perf_counter() - t0:.3f} s")
 
     # 3. kernels vs plain versions on the card
@@ -625,16 +859,25 @@ def main() -> int:
         f"versions, tolerance 0 (exact: integer data) "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 4. q4 main path on the card
-    launches, per_tick, captured = run_q4(dev)
+    # 4. the queries' paths on the card, one after the other, each with
+    #    the launch counts set to 0 just before it and read just after
+    runs = {}
+    all_events: dict = {}
+    with contextlib.ExitStack() as stack:
+        recs = [stack.enter_context(r) for r in recorders()]
+        for name in QUERIES:
+            runs[name] = run_query(name, all_events)
+    captured = {r.name: r.best for r in recs}
+    captured["rank_merge"] = captured.pop("rank_merge_scatter")
 
     # 5. cross-check CPU vs card
-    rows = cross_check()
-    say(f"cross-check: {CROSS_TICKS} ticks of {CROSS_EVENTS} events, "
-        f"{rows} output rows equal on the CPU and on the card")
+    for name in QUERIES:
+        rows = cross_check(name)
+        say(f"cross-check {name}: {CROSS_TICKS} ticks of {CROSS_EVENTS} "
+            f"events, {rows} output rows equal on the CPU and on the card")
 
-    # 6. kernel table at the shapes q4 gave each kernel
-    table = kernel_table(captured, launches, per_tick, ck)
+    # 6. kernel table at the shapes the queries gave each kernel
+    table = kernel_table(captured, runs, ck)
     say(json.dumps({"kernels": table}))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,15 @@
 """Operator library of the port. Importing this package attaches the
-Stream sugar (map_rows/filter_rows/index_by/join_index/aggregate/output)."""
+Stream sugar (map_rows/filter_rows/index_by/join_index/aggregate/distinct/
+stream_distinct/output)."""
 
 # importing the modules registers their Stream methods
 from dbsp_tpu_torch.operators import (  # noqa: F401
-    aggregate, filter_map, io_handles, join, trace_op)
+    aggregate, distinct, filter_map, io_handles, join, trace_op)
 from dbsp_tpu_torch.operators.aggregate import Max
-from dbsp_tpu_torch.operators.aggregate_linear import LinearAverage
+from dbsp_tpu_torch.operators.aggregate_linear import (LinearAverage,
+                                                       LinearCount)
 from dbsp_tpu_torch.operators.io_handles import (InputHandle, OutputHandle,
                                                  add_input_zset)
 
 __all__ = ["InputHandle", "OutputHandle", "add_input_zset", "Max",
-           "LinearAverage"]
+           "LinearAverage", "LinearCount"]

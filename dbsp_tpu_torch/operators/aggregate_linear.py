@@ -41,6 +41,18 @@ class LinearAggregator:
 
 
 @dataclasses.dataclass(frozen=True)
+class LinearCount(LinearAggregator):
+    """Net weight per key; no accumulator columns."""
+
+    acc_dtypes = ()
+    out_dtypes = (torch.int64,)
+    name = "count"
+
+    def finalize(self, acc_cols, count):
+        return (count,)
+
+
+@dataclasses.dataclass(frozen=True)
 class LinearAverage(LinearAggregator):
     """Integer average sum/count, truncating toward zero (SQL semantics)."""
 

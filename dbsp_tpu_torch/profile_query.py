@@ -1,9 +1,10 @@
-"""Where a q4 tick's time goes on the card.
+"""Where a Nexmark query's tick time goes on the card.
 
-    python3 -m dbsp_tpu_torch.profile_q4
+    python3 -m dbsp_tpu_torch.profile_query [q3|q4|q8|q15 ...]
 
-Runs Nexmark q4 on the host runtime on the card at chip_smoke.py's size
-(100,000 events per tick, 24 ticks, seed 1), then over 3 more ticks:
+Runs each named query (default q4) on the host runtime on the card at
+chip_smoke.py's size (100,000 events per tick, 24 ticks, seed 1), then
+over 3 more ticks:
 
 * per operator: wall time of each node's eval, each followed by a device
   synchronize (so device work is charged to the node that queued it);
@@ -11,14 +12,16 @@ Runs Nexmark q4 on the host runtime on the card at chip_smoke.py's size
   summed device time per tick, and the device's busy share of the tick
   (one stream, so kernels do not overlap and their sum is the busy time).
 
-Prints one JSON line per view and writes the profiler's Chrome trace to
-``chiprun_out/q4_trace.json``.
+Prints one JSON line per view and query and writes the profiler's Chrome
+trace to ``chiprun_out/<query>_trace.json``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
+import sys
 import time
 from collections import defaultdict
 
@@ -33,6 +36,34 @@ STATE_TICKS = 24
 PROFILE_TICKS = 3
 
 
+# The port's hand-written kernels: the __global__ functions of csrc/*.cu.
+PORT_KERNELS = ("probe_ladder_kernel", "probe_kernel", "scan_tiles_kernel",
+                "add_tile_offsets_kernel", "total_kernel", "gather_kernel",
+                "rank_merge_kernel", "fill_kernel", "rows_kernel",
+                "fin_avg_kernel")
+
+
+def port_kernel(event: str):
+    """The name in PORT_KERNELS that the profiler event ``event`` (mangled
+    or demangled) is a launch of, else None: the name must stand alone,
+    so PyTorch's ``vectorized_gather_kernel`` is not ``gather_kernel``."""
+    return next((k for k in PORT_KERNELS
+                 if re.search(rf"(?<![A-Za-z_]){k}(?![a-z0-9_])", event)),
+                None)
+
+
+def _port_view(kernels: dict) -> dict:
+    """Device ms and launches per profiled tick of each port kernel (its
+    template instances summed)."""
+    view = defaultdict(lambda: {"ms_per_tick": 0.0, "calls_per_tick": 0.0})
+    for event, (ms, calls) in kernels.items():
+        k = port_kernel(event)
+        if k:
+            view[k]["ms_per_tick"] += ms / PROFILE_TICKS
+            view[k]["calls_per_tick"] += calls / PROFILE_TICKS
+    return dict(view)
+
+
 def _tick(gen, handle, handles, out, n):
     gen.feed(handles, n, n + EVENTS_PER_TICK)
     handle.step()
@@ -40,13 +71,20 @@ def _tick(gen, handle, handles, out, n):
     return n + EVENTS_PER_TICK
 
 
-def main() -> None:
+def main(argv) -> None:
     if not torch.cuda.is_available():
-        raise SystemExit("CUDA is not available: profile_q4 needs the card")
+        raise SystemExit("CUDA is not available: profile_query needs the "
+                         "card")
+    for name in argv or ["q4"]:
+        profile(name)
+
+
+def profile(name: str) -> None:
+    query = getattr(queries, name)
 
     def build(c):
         streams, handles = build_inputs(c)
-        return handles, queries.q4(*streams).output()
+        return handles, query(*streams).output()
 
     handle, (handles, out) = Runtime.init_circuit(1, build)
     gen = NexmarkGenerator(GeneratorConfig(seed=1))
@@ -82,7 +120,7 @@ def main() -> None:
     for node in handle.circuit.nodes:
         del node.operator.eval  # back to the class's eval
     print(json.dumps({
-        "view": "operators", "ticks": PROFILE_TICKS,
+        "view": "operators", "query": name, "ticks": PROFILE_TICKS,
         "feed_ms_per_tick": feed_ms / PROFILE_TICKS,
         "step_ms_per_tick": step_ms / PROFILE_TICKS,
         "node_ms_per_tick": {k: v / PROFILE_TICKS
@@ -109,19 +147,22 @@ def main() -> None:
     busy = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
-        "view": "device", "ticks": PROFILE_TICKS,
+        "view": "device", "query": name, "ticks": PROFILE_TICKS,
         "wall_ms_per_tick": wall_ms / PROFILE_TICKS,
         "device_busy_ms_per_tick": busy / PROFILE_TICKS,
         "device_busy_share": busy / wall_ms,
         "device_ops_per_tick": sum(v[1] for v in kernels.values())
         / PROFILE_TICKS,
-        "top": [{"name": name[:90], "ms_per_tick": v[0] / PROFILE_TICKS,
+        "top": [{"name": k[:90], "ms_per_tick": v[0] / PROFILE_TICKS,
                  "calls_per_tick": v[1] / PROFILE_TICKS}
-                for name, v in top],
+                for k, v in top],
+        # the port's own kernels, whatever their rank
+        "port_kernels": _port_view(kernels),
     }), flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out", "q4_trace.json"))
+    prof.export_chrome_trace(os.path.join("chiprun_out",
+                                          f"{name}_trace.json"))
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

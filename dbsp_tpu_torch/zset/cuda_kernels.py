@@ -1,6 +1,8 @@
-"""The hand-written CUDA kernels of the q4 path, each wrapper beside its
-plain PyTorch version — counterpart of ``dbsp_tpu/zset/pallas_kernels.py``.
+"""The hand-written CUDA kernels of the port, each wrapper beside its plain
+PyTorch version — counterpart of ``dbsp_tpu/zset/pallas_kernels.py``.
 
+* ``lex_probe_ladder`` (``csrc/probe_ladder.cu``) replaces
+  ``lex_probe_ladder_pallas`` (pallas_kernels.py:145);
 * ``join_ladder`` and ``gather_ladder`` (``csrc/ladder_consumer.cu``)
   replace ``join_ladder_pallas`` (pallas_kernels.py:338) and
   ``gather_ladder_pallas`` (:357);
@@ -40,7 +42,8 @@ Cols = Tuple[torch.Tensor, ...]
 
 # launches per wrapper; a run resets them with reset_launches()
 LAUNCHES: Dict[str, int] = dict.fromkeys(
-    ("join_ladder", "gather_ladder", "segment_reduce", "rank_merge"), 0)
+    ("lex_probe_ladder", "join_ladder", "gather_ladder", "segment_reduce",
+     "rank_merge"), 0)
 
 
 def reset_launches() -> None:
@@ -54,7 +57,8 @@ def reset_launches() -> None:
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("ladder_consumer.cu", "segment_reduce.cu", "rank_merge.cu")
+SOURCES = ("probe_ladder.cu", "ladder_consumer.cu", "segment_reduce.cu",
+           "rank_merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # slots of the by-value argument block (csrc/common.cuh ARGS_MAX, MAX_COLS)
@@ -113,6 +117,9 @@ def build(verbose: bool = False) -> Dict[str, Path]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if hasattr(lib, "lex_probe_ladder"):
+        lib.lex_probe_ladder.argtypes = [P, I, I, L, I, P, P]
+        lib.lex_probe_ladder.restype = I
     if hasattr(lib, "ladder_consumer"):
         lib.ladder_scratch_elems.argtypes = [I, L]
         lib.ladder_scratch_elems.restype = L
@@ -198,7 +205,8 @@ def _cuda_device(t: torch.Tensor, what: str) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# The stitched chain: the ladder consumers' plain versions are built of it
+# Ladder-wide lex probe; its plain version heads the stitched chain that the
+# ladder consumers' plain versions are built of
 # ---------------------------------------------------------------------------
 
 
@@ -206,7 +214,45 @@ def lex_probe_ladder(tables: Sequence[Cols], query_cols: Cols,
                      side: str = "left") -> torch.Tensor:
     """Insertion points of ``query`` rows into EVERY sorted table: [K, m]
     int32, lane (k, i) == ``lex_probe(tables[k], query_cols, side)[i]``;
-    each level's lanes are clamped to its own row count."""
+    each level's lanes are clamped to its own row count. Every lane gets
+    its raw insertion point, sentinel queries included: callers mask dead
+    rows themselves."""
+    if _on_cpu(query_cols[0]):
+        return lex_probe_ladder_plain(tables, query_cols, side)
+    what = "lex_probe_ladder"
+    dev = _cuda_device(query_cols[0], what)
+    K, ncols, m = len(tables), len(query_cols), query_cols[0].shape[0]
+    if side not in ("left", "right"):
+        raise ValueError(f"{what}: side must be 'left' or 'right', got "
+                         f"{side!r}")
+    if K < 1 or not 1 <= ncols <= MAX_COLS:
+        raise ValueError(f"{what}: needs levels and 1..{MAX_COLS} columns "
+                         f"(K={K}, ncols={ncols})")
+    out = torch.empty((K, m), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    caps = ncols * K + ncols
+    args = _ArgBlock(dev, caps + K, what)
+    for k, t in enumerate(tables):
+        if len(t) != ncols:
+            raise ValueError(f"{what}: level {k} has {len(t)} columns, the "
+                             f"queries {ncols}")
+        for c in range(ncols):
+            args.col(c * K + k, t[c])
+        args.slots[caps + k] = t[0].shape[0]
+    for c in range(ncols):
+        args.col(ncols * K + c, query_cols[c])
+    args.launch(load_library("probe_ladder").lex_probe_ladder, K, ncols, m,
+                int(side == "left"), out.data_ptr())
+    LAUNCHES[what] += 1
+    return out
+
+
+def lex_probe_ladder_plain(tables: Sequence[Cols], query_cols: Cols,
+                           side: str = "left") -> torch.Tensor:
+    """Plain version of :func:`lex_probe_ladder`: one vectorized binary
+    search over all levels at once (reference ``cursor.lex_probe_ladder``,
+    XLA branch)."""
     assert tables, "lex_probe_ladder: empty ladder"
     m = query_cols[0].shape[0]
     dev = query_cols[0].device
@@ -218,9 +264,11 @@ def lex_probe_ladder(tables: Sequence[Cols], query_cols: Cols,
     for _ in range(max(c.bit_length() for c in caps)):
         active = lo < hi
         mid = (lo + hi) >> 1
+        # an empty level's lanes are never active: it reads nothing
         go_right = torch.stack([
-            kernels._lex_le_rows(t, torch.clamp(mid[k], 0, max(c - 1, 0)),
-                                 query_cols, strict)
+            kernels._lex_le_rows(t, torch.clamp(mid[k], 0, c - 1),
+                                 query_cols, strict) if c
+            else torch.zeros((m,), dtype=torch.bool, device=dev)
             for k, (t, c) in enumerate(zip(tables, caps))])
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
@@ -332,8 +380,8 @@ def join_ladder_plain(delta_keys: Cols, delta_w: torch.Tensor,
     """Plain version of :func:`join_ladder`: the stitched probe-ladder /
     expand / gather chain (reference ``cursor.join_ladder``, XLA branch)."""
     tables = [lvl.keys[:nk] for lvl in levels]
-    lo = lex_probe_ladder(tables, delta_keys, side="left")
-    hi = lex_probe_ladder(tables, delta_keys, side="right")
+    lo = lex_probe_ladder_plain(tables, delta_keys, side="left")
+    hi = lex_probe_ladder_plain(tables, delta_keys, side="right")
     live = (delta_w != 0)[None, :]
     lo = torch.where(live, lo, 0)
     hi = torch.where(live, hi, lo)
@@ -385,9 +433,9 @@ def gather_ladder_plain(qkeys: Cols, qlive: torch.Tensor, levels: Sequence,
     nk = len(qkeys)
     q_cap = qlive.shape[-1]
     tables = [lvl.keys[:nk] for lvl in levels]
-    lo = lex_probe_ladder(tables, qkeys, side="left")
-    hi = lex_probe_ladder(tables, qkeys if qhi_keys is None
-                                 else qhi_keys, side="right")
+    lo = lex_probe_ladder_plain(tables, qkeys, side="left")
+    hi = lex_probe_ladder_plain(tables, qkeys if qhi_keys is None
+                                else qhi_keys, side="right")
     live = qlive[None, :] != 0
     lo = torch.where(live, lo, 0)
     # probes are monotone: with distinct bounds an empty range (qhi < qlo)

@@ -1,13 +1,15 @@
 """Fused trace cursor: probe every level of a trace ladder at once —
-counterpart of ``dbsp_tpu/zset/cursor.py``, for the one consumer that does
-more than launch its kernel.
+counterpart of ``dbsp_tpu/zset/cursor.py``, for the consumers that do
+more than launch one kernel.
 
 A trace is a small set of consolidated batches in geometric capacity
 classes. :func:`join_ladder` (the incremental join) runs ONE launch of the
 CUDA ladder-consumer kernel on a CUDA tensor (``cuda_kernels.join_ladder``;
 its plain version, the stitched probe-ladder / expand / gather chain, sits
-beside it there), then applies the pair function. The aggregate's group
-gather calls ``cuda_kernels.gather_ladder`` directly.
+beside it there), then applies the pair function.
+:func:`old_weights_ladder` (incremental distinct) runs the CUDA ladder
+probe twice and sums the found weights in plain torch. The aggregate's
+group gather calls ``cuda_kernels.gather_ladder`` directly.
 
 Overflow contract (as in the reference): the match total comes back
 UNCLAMPED; when it exceeds ``out_cap`` the tail matches drop off and the
@@ -52,3 +54,22 @@ def join_ladder(delta: Batch, levels: Sequence[Batch], nk: int, fn,
     lvals = tuple(c[qrow] for c in delta.vals)
     return _finish_join(fn, key_cols, lvals, rvals, w, valid, total)
 
+
+
+def old_weights_ladder(delta: Batch, levels: Sequence[Batch]
+                       ) -> torch.Tensor:
+    """Accumulated weight of each delta ROW (keys+vals) across ALL levels:
+    a left and a right ladder probe of the full rows (the CUDA probe
+    kernel on a CUDA tensor), then the found weights summed across levels.
+    Rows are unique within a consolidated level, so each (level, row)
+    range is 0 or 1 wide."""
+    assert levels, "old_weights_ladder: trace has no levels"
+    tables = [lvl.cols for lvl in levels]
+    lo = cuda_kernels.lex_probe_ladder(tables, delta.cols, side="left")
+    hi = cuda_kernels.lex_probe_ladder(tables, delta.cols, side="right")
+    found = (hi > lo) & (delta.weights != 0)[None, :]
+    old = torch.zeros_like(delta.weights)
+    for k, lvl in enumerate(levels):
+        w = lvl.weights[torch.clamp(lo[k].to(torch.int64), max=lvl.cap - 1)]
+        old = old + torch.where(found[k], w, 0)
+    return old

@@ -71,6 +71,7 @@ def test_wrappers_off_the_cpu_launch_or_raise():
     seg = torch.zeros(8, dtype=torch.int32, device="meta")
     before = dict(cuda_kernels.LAUNCHES)
     calls = [
+        lambda: cuda_kernels.lex_probe_ladder([b.cols], b.cols),
         lambda: cuda_kernels.join_ladder(b.keys, b.weights, [b], 1, 64),
         lambda: cuda_kernels.gather_ladder(b.keys, b.weights != 0, [b], 64),
         lambda: cuda_kernels.segment_reduce(
@@ -90,3 +91,29 @@ def test_kernel_library_needs_cuda():
                     "kernels there")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cuda_kernels.load_library("rank_merge")
+
+
+def test_profile_query_knows_every_kernel():
+    """profile_query's view of the port's kernels names every __global__
+    function of csrc/, and picks them, and nothing else, out of profiler
+    event names, mangled or not."""
+    import re
+
+    from dbsp_tpu_torch.profile_query import PORT_KERNELS, port_kernel
+
+    names = {n for src in (ROOT / "dbsp_tpu_torch" / "csrc").glob("*.cu")
+             for n in re.findall(r"__global__\s+void\s+(\w+)",
+                                 src.read_text())}
+    assert set(PORT_KERNELS) == names
+    events = {
+        "void (anonymous namespace)::probe_ladder_kernel<true>(Args, int, "
+        "int, long, int*)": "probe_ladder_kernel",
+        "_ZN12_GLOBAL__N_112probe_kernelE4Args6Layoutlplb": "probe_kernel",
+        "_ZN12_GLOBAL__N_113gather_kernelE4Args6Layoutllil": "gather_kernel",
+        "void at::native::vectorized_gather_kernel<16, long>(char*, char*, "
+        "long*, int, long, long, long, long, bool)": None,
+        "void at::native::vectorized_elementwise_kernel<4, "
+        "at::native::FillFunctor<long>, std::array<char*, 1ul> >(int, "
+        "at::native::FillFunctor<long>, std::array<char*, 1ul>)": None,
+    }
+    assert {e: port_kernel(e) for e in events} == events

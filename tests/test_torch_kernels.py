@@ -1,4 +1,4 @@
-"""The port's four kernel entry points (dbsp_tpu_torch/zset/cuda_kernels.py)
+"""The port's five kernel entry points (dbsp_tpu_torch/zset/cuda_kernels.py)
 against the reference's Pallas kernels, exactly.
 
 On the CPU each entry point runs its plain version, so these tests hold
@@ -73,6 +73,39 @@ def _ladders(rng):
         [rng.integers(0, 9, 10).astype(np.int64)],
         rng.integers(-2, 3, 10).astype(np.int64), cap=16)
     yield mixed, 1, delta
+
+
+def _probe_cases(rng):
+    """(tables, queries) of the adversarial ladders: key probes with dead
+    (sentinel) query rows, all-sentinel queries, and full-row probes whose
+    int32 value column the kernel widens."""
+    for ladder in _adversarial_ladders(rng):
+        delta = _consolidated(rng, 20, 32)  # 12+ dead sentinel rows
+        yield [lvl.keys for lvl in ladder], delta.keys
+        yield [lvl.keys for lvl in ladder], tuple(
+            jnp.full((8,), jnp.iinfo(jnp.int64).max) for _ in delta.keys)
+    # a level of no rows at all (spines drop empty levels, the kernel
+    # takes them): every lane of it is 0
+    yield [lvl.keys for lvl in ladder] + [
+        (jnp.zeros((0,), jnp.int64),) * 2], delta.keys
+    mixed = _mixed_ladder(rng)
+    probe = mixed[1]  # rows found in level 1, mostly not in level 0
+    yield [lvl.cols for lvl in mixed], probe.cols
+    yield [lvl.cols for lvl in mixed], mixed[0].cols
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_lex_probe_ladder_plain_equals_pallas(pallas_interpret, side):
+    rng = np.random.default_rng(40)
+    cases = 0
+    for tables, queries in _probe_cases(rng):
+        want = pallas_kernels.lex_probe_ladder_pallas(tables, queries, side)
+        got = cuda_kernels.lex_probe_ladder(
+            [tuple(_t(c) for c in t) for t in tables],
+            tuple(_t(q) for q in queries), side)
+        _assert_same(got, want, f"case {cases}")
+        cases += 1
+    assert cases == 9
 
 
 # out_cap 4 is below the larger ladders' match totals: the overflow
@@ -220,6 +253,7 @@ def test_cpu_tensors_take_the_plain_versions():
     rng = np.random.default_rng(5)
     ladder = [_port(b) for b in _mixed_ladder(rng)]
     d = ladder[1]
+    cuda_kernels.lex_probe_ladder([lvl.cols for lvl in ladder], d.cols)
     cuda_kernels.join_ladder(d.keys, d.weights, ladder, 1, 64)
     cuda_kernels.gather_ladder(d.keys, d.weights != 0, ladder, 64)
     cuda_kernels.segment_reduce((("max", 0),), (d.vals[1],), d.weights,
