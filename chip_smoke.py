@@ -11,9 +11,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
 3. kernels — each kernel entry point against its plain PyTorch version
              on the card, exactly, on adversarial cases (empty levels,
              dead and all-sentinel queries, duplicates, full capacity,
-             total > out_cap, no gathered columns, empty /
-             retraction-only / out-of-range segments) and on inputs of
-             the queries' sizes (ladders up to 2M rows, 100k-row deltas);
+             total > out_cap, no gathered columns, cap-0 levels, ladders
+             wider than the by-value argument block, empty /
+             retraction-only / out-of-range segments, the aggregate
+             chain's fast path with its gate off and on, its general
+             path and netting ladders) and on inputs of the queries'
+             sizes (ladders up to 2M rows, 100k-row deltas);
 4. queries — Nexmark q4, q3, q8 and q15, one after the other, each on the
              host runtime on the card at 100,000 events per tick: 4 warm
              ticks then 20 measured (2,000,000 events, a cut of Nexmark's
@@ -22,6 +25,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
              after it (and per measured tick), the kernels its path must
              launch checked, and the accumulated output held against a
              numpy oracle of the query over all events;
+4b. compiled — Nexmark q4 and q3 on the compiled engine, events generated
+             on the card (device_gen), 100,000 events per tick, the
+             reference bench's protocol: 4 warm ticks validated every
+             tick, presize, one more tick, then 24 measured ticks
+             validated every 8, pipelined; then 8 more ticks under the
+             profiler for the card's busy share. Launch counts are set to
+             0 just before each query's run and read just after it. Every
+             tick's output equals the port's host engine on the card for
+             the same events, and the integrated output equals the numpy
+             oracle. Host syncs inside the measured ticks are counted with
+             torch.cuda.set_sync_debug_mode("warn") (its one-time
+             prototype notice is listed apart);
 5. cross   — for each query, the first 3 ticks of 10,000 events through
              the port on the CPU (plain versions) and on the card: equal
              rows per tick;
@@ -64,6 +79,7 @@ REPLACES = {
     "gather_ladder": "dbsp_tpu/zset/pallas_kernels.py:357",
     "segment_reduce": "dbsp_tpu/zset/pallas_kernels.py:430",
     "rank_merge": "dbsp_tpu/zset/pallas_kernels.py:519",
+    "agg_ladder": "dbsp_tpu/zset/pallas_kernels.py:472",
 }
 SOURCE = {
     "lex_probe_ladder": "dbsp_tpu_torch/csrc/probe_ladder.cu",
@@ -71,6 +87,8 @@ SOURCE = {
     "gather_ladder": "dbsp_tpu_torch/csrc/ladder_consumer.cu",
     "segment_reduce": "dbsp_tpu_torch/csrc/segment_reduce.cu",
     "rank_merge": "dbsp_tpu_torch/csrc/rank_merge.cu",
+    # the chain over ladder_consumer.cu's gather and segment_reduce.cu
+    "agg_ladder": "dbsp_tpu_torch/zset/cuda_kernels.py",
 }
 # the queries driven on the card, in order, and the kernels each one's
 # path must launch
@@ -80,6 +98,18 @@ QUERIES = {
     "q8": ("lex_probe_ladder", "join_ladder", "rank_merge"),
     "q15": ("lex_probe_ladder", "gather_ladder", "rank_merge"),
 }
+# the compiled engine's paths, driven after the host engine's
+COMPILED = {
+    "q4": ("join_ladder", "agg_ladder", "gather_ladder", "segment_reduce",
+           "rank_merge"),
+    "q3": ("join_ladder", "rank_merge"),
+}
+C_WARM, C_TICKS, C_VALIDATE, C_PROFILE = 4, 24, 8, 8
+# torch's sync debug mode warns at each host sync ("called a synchronizing
+# CUDA operation"); the first time it is switched on it also warns that it
+# "is a prototype feature and does not yet detect all synchronizing
+# operations", which is no sync
+SYNC_NOTICE = "is a prototype feature"
 
 
 def fail(msg: str) -> None:
@@ -100,6 +130,8 @@ def flat_outputs(out):
     """Every tensor of a (nested) kernel result, in order."""
     import torch
 
+    if out is None:  # the aggregate chain's fast-path slots, general path
+        return []
     if isinstance(out, torch.Tensor):
         return [out]
     return [t for o in out for t in flat_outputs(o)]
@@ -268,6 +300,152 @@ def check_lex_probe(ck: Checker, rng, dev) -> None:
                [lvl.cols for lvl in ladder], delta.cols)
 
 
+def empty_level(dev, nk=2, nv=1):
+    """A level of no rows (cap 0): spines drop them, the compiled engine's
+    ladders and the kernels take them."""
+    import torch
+
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    return Batch.empty((torch.int64,) * nk, (torch.int64,) * nv, cap=0,
+                       device=dev)
+
+
+def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
+    """The ladder consumer on a cap-0 level, and the lex probe and the
+    ladder consumer on ladders whose argument block is wider than the
+    by-value block (it then travels as a device table)."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    # the smallest input of the cap-0 fault: keys [1, 2, 3, 9] and a level
+    # of no rows; delta keys [1, 3, 4]
+    lvl = Batch.from_columns([np.array([1, 2, 3, 9], np.int64)],
+                             [np.array([10, 20, 30, 90], np.int64)],
+                             np.array([2, 1, -1, 1], np.int64), cap=4,
+                             device=dev)
+    d = Batch.from_columns([np.array([1, 3, 4], np.int64)], [],
+                           np.ones(3, np.int64), cap=4, device=dev)
+    ladder = [lvl, empty_level(dev, nk=1)]
+    got = ck.check("join_ladder", "cap-0 level, smallest input",
+                   ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                   d.keys, d.weights, ladder, 1, 8)
+    # flat outputs: qrow, the level's value column, w, valid, total
+    if got[1][:3].tolist() != [10, 30, 0] or \
+            got[2][:3].tolist() != [2, -1, 0] or int(got[-1]) != 2:
+        fail(f"join_ladder on a cap-0 level: vals {got[1][:3].tolist()}, "
+             f"w {got[2][:3].tolist()}, total {int(got[-1])}; want "
+             "[10, 30, 0], [2, -1, 0], 2")
+    ck.check("gather_ladder", "cap-0 level, smallest input",
+             ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+             d.keys, d.weights != 0, ladder, 8)
+    for li, ladder in enumerate(adversarial_ladders(rng, dev)):
+        ladder = [ladder[0], empty_level(dev), *ladder[1:]]
+        delta = consolidated(rng, 20, 32, dev)
+        for out_cap in (1024, 4):
+            ck.check("join_ladder", f"ladder {li} + cap-0 level {out_cap}",
+                     ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                     delta.keys, delta.weights, ladder, 2, out_cap)
+            ck.check("gather_ladder", f"ladder {li} + cap-0 level "
+                     f"{out_cap}", ck_mod.gather_ladder,
+                     ck_mod.gather_ladder_plain, delta.keys,
+                     delta.weights != 0, ladder, out_cap)
+    # wide ladders: 200 levels of two-column rows for the probe
+    # (3 * 200 + 2 = 602 slots), 100 levels of bids rows for the join and
+    # the gather ((1 + 4 + 2) * 100 + 7 = 707 slots)
+    two = ((0, 50, np.int64),) * 2
+    probe_ladder = [consolidated(rng, 12, 16, dev, spec=two, nv=0)
+                    for _ in range(200)]
+    q = consolidated(rng, 300, 512, dev, spec=two, nv=0)
+    for side in ("left", "right"):
+        ck.check("lex_probe_ladder", f"200 levels ({3 * 200 + 2} slots) "
+                 f"side {side}", ck_mod.lex_probe_ladder,
+                 ck_mod.lex_probe_ladder_plain,
+                 [lvl.cols for lvl in probe_ladder], q.cols, side)
+    bids = bids_row(40)
+    wide = [consolidated(rng, 20, 32, dev, nk=1, spec=bids)
+            for _ in range(100)]
+    delta = consolidated(rng, 60, 64, dev, nk=1, spec=bids)
+    for out_cap in (1 << 14, 64):
+        ck.check("join_ladder", f"100 levels (707 slots) out_cap {out_cap}",
+                 ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                 delta.keys, delta.weights, wide, 1, out_cap)
+        ck.check("gather_ladder", f"100 levels (707 slots) {out_cap}",
+                 ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                 delta.keys, delta.weights != 0, wide, out_cap)
+    if ck_mod._ArgBlock(dev, 707, "check").by_value:
+        fail("a 707-slot launch did not take the device table")
+
+
+def agg_kernel_checked(*args):
+    """``cuda_kernels.agg_ladder``, failing unless the call launched the
+    gather kernel twice (the out trace, the input ladder) and the
+    segment-reduce kernel once per reduction (three on the fast path, two
+    on the general path)."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    before = dict(ck_mod.LAUNCHES)
+    out = ck_mod.agg_ladder(*args)
+    got = {k: ck_mod.LAUNCHES[k] - before[k]
+           for k in ("agg_ladder", "gather_ladder", "segment_reduce")}
+    fast = args[7]
+    want = {"agg_ladder": 1, "gather_ladder": 2,
+            "segment_reduce": 3 if fast else 2}
+    if got != want:
+        fail(f"agg_ladder launched {got}, want {want}")
+    return out
+
+
+def netting_ladder(rng, dev):
+    """Levels whose rows cancel across levels: the second retracts some
+    rows of the first, the third re-inserts some of those."""
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    spec = ((0, 6, np.int64),) * 3
+    base = consolidated(rng, 40, 64, dev, spec=spec)
+    n = int((base.weights != 0).sum())
+    cols = [c[:n].cpu().numpy() for c in base.cols]
+    w = base.weights[:n].cpu().numpy()
+    sel = rng.random(n) < 0.5
+    back = Batch.from_columns([c[sel] for c in cols[:2]], [cols[2][sel]],
+                              -w[sel], cap=64, device=dev)
+    again = Batch.from_columns([c[sel][::2] for c in cols[:2]],
+                               [cols[2][sel][::2]],
+                               np.ones(len(w[sel][::2]), np.int64), cap=32,
+                               device=dev)
+    return [base, back, again]
+
+
+def check_agg_ladder(ck: Checker, rng, dev) -> None:
+    """agg_ladder against agg_ladder_plain on the adversarial ladders, a
+    netting ladder and a cap-0 level: the fast path (Max) with the gate
+    off and on, the general path, and caps under the totals."""
+    import torch
+
+    from dbsp_tpu_torch.operators.aggregate import Max
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    ladders = list(adversarial_ladders(rng, dev))
+    ladders.append(netting_ladder(rng, dev))
+    ladders.append([ladders[0][0], empty_level(dev), ladders[0][2]])
+    spec = ((0, 6, np.int64),) * 3
+    for li, ladder in enumerate(ladders):
+        delta = consolidated(rng, 20, 32, dev, spec=spec)
+        out_trace = consolidated(rng, 10, 16, dev, spec=spec)
+        for fast, flag, q_cap, g_cap in ((True, False, 16, 512),
+                                         (True, True, 16, 512),
+                                         (False, True, 16, 512),
+                                         (True, True, 4, 8),
+                                         (False, True, 4, 8)):
+            ck.check("agg_ladder", f"ladder {li} fast {fast} gate {flag} "
+                     f"caps {q_cap}/{g_cap}", agg_kernel_checked,
+                     ck_mod.agg_ladder_plain, delta, 2, out_trace, ladder,
+                     Max(0), q_cap, g_cap, fast,
+                     torch.tensor(flag, device=dev))
+
+
 def check_kernels(ck: Checker, dev) -> None:
     import torch
 
@@ -312,6 +490,8 @@ def check_kernels(ck: Checker, dev) -> None:
              ck_mod.join_ladder_plain, delta.keys, delta.weights, ladder, 2,
              1 << 14)
     check_lex_probe(ck, rng, dev)
+    check_cap0_and_wide(ck, rng, dev)
+    check_agg_ladder(ck, rng, dev)
     # -- q4-sized ladder: bids-schema levels up to 2M rows, 100k delta
     bids = bids_row(60_000)
     big = [consolidated(rng, n, cap, dev, nk=1, spec=bids)
@@ -455,6 +635,7 @@ class Recorder:
     it), and which query made it."""
 
     query = None  # the query being driven
+    paused = 0  # > 0: record nothing (a chain's own kernels, a check)
 
     def __init__(self, module, name: str, size_fn):
         self.module, self.name, self.size_fn = module, name, size_fn
@@ -462,12 +643,20 @@ class Recorder:
         self.best = (-1, None, None, None)
 
     def __call__(self, *args, **kw):
+        if Recorder.paused:
+            return self.orig(*args, **kw)
         size = self.size_fn(*args, **kw)
         if size > self.best[0]:
             # a spine's level list changes after the tick: keep a snapshot
             self.best = (size, tuple(tuple(a) if isinstance(a, list) else a
                                      for a in args), kw, Recorder.query)
-        return self.orig(*args, **kw)
+        if self.name != "agg_ladder":
+            return self.orig(*args, **kw)
+        Recorder.paused += 1  # the chain is recorded, not its kernels
+        try:
+            return self.orig(*args, **kw)
+        finally:
+            Recorder.paused -= 1
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -497,7 +686,13 @@ def recorders():
                  lambda spec, vals, w, *a, **k: w.shape[0]),
         Recorder(ck_mod, "rank_merge_scatter",
                  lambda ca, wa, cb, wb: wa.shape[0] + wb.shape[0]),
+        Recorder(ck_mod, "agg_ladder",
+                 lambda d, nk, ot, levels, *a: d.cap + ot.cap
+                 + sum(lvl.cap for lvl in levels)),
     ]
+
+
+host_metrics: dict = {}  # the host engine's numbers, beside the compiled
 
 
 def run_query(name: str, all_events: dict):
@@ -553,6 +748,10 @@ def run_query(name: str, all_events: dict):
         fail(f"{name} accumulated output differs from the oracle: "
              f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
     lat = sorted(handle.step_times_ns)
+    host_metrics[name] = {"events_per_s": TICKS * EVENTS_PER_TICK / elapsed,
+                          "tick_p50_ms": lat[len(lat) // 2] / 1e6,
+                          "tick_p99_ms": lat[min(len(lat) - 1,
+                                                 int(len(lat) * 0.99))] / 1e6}
     spine_bytes = sum(sp.nbytes() for node in handle.circuit.nodes
                       for sp in (getattr(node.operator, attr, None)
                                  for attr in ("spine", "out_spine",
@@ -574,6 +773,232 @@ def run_query(name: str, all_events: dict):
         "output_rows": len(acc), "oracle_equal": True,
         "note": "2M measured events: a cut of Nexmark's usual 100M events, "
                 "made for the run's time limit",
+    }))
+    return launches, per_tick
+
+
+# ---------------------------------------------------------------------------
+# The compiled engine
+# ---------------------------------------------------------------------------
+
+
+def state_bytes(tree) -> int:
+    """Device bytes of a compiled state tree (batches, tuples, tensors)."""
+    import torch
+
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    if isinstance(tree, torch.Tensor):
+        return _nbytes(tree)
+    if isinstance(tree, Batch):
+        return tree.nbytes()
+    if isinstance(tree, (tuple, list)):
+        return sum(state_bytes(t) for t in tree)
+    if isinstance(tree, dict):
+        return sum(state_bytes(t) for t in tree.values())
+    return 0
+
+
+def run_compiled(name: str) -> dict:
+    """Drive one query on the compiled engine on the card (see the module
+    doc, phase 4b); fail on any disagreement. Returns its launches."""
+    import gc
+    import traceback
+    import warnings
+
+    import torch
+
+    from dbsp_tpu_torch.compiled import cnodes, compile_circuit
+    from dbsp_tpu_torch.nexmark import (GeneratorConfig, NexmarkGenerator,
+                                        device_gen)
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    ept = EVENTS_PER_TICK // 50
+    cfg = GeneratorConfig(seed=1)
+    handle, (handles, out) = build_query(name)
+    if handle.runtime.device.type != "cuda":
+        fail(f"compiled {name} built on {handle.runtime.device}")
+    hp, ha, hb = handles
+
+    def gen_fn(tick):
+        p, a, b = device_gen.generate_tick(cfg, tick * ept, ept)
+        return {hp: p, ha: a, hb: b}
+
+    # the level count for this run length, as the reference bench picks it
+    ch = compile_circuit(handle, gen_fn=gen_fn,
+                         trace_levels=cnodes.levels_for_run(C_TICKS))
+    out_idx = ch._op_to_index[id(out._op)]
+    outs = {}
+    syncs = []
+    sync_sites: dict = {}
+    sync_notices: list = []
+    dispatch_ns = []
+    per_tick = {k: [] for k in ck_mod.LAUNCHES}
+    counting = [False]
+    dispatch = ch._dispatch
+
+    def counted_dispatch(tick, feeds=None):
+        # a measured tick's host syncs (the sync debug mode warns at each
+        # one) and kernel launches
+        if counting[0]:
+            before = dict(ck_mod.LAUNCHES)
+            found = []
+
+            def note(message, category, filename, lineno, *a, **k):
+                msg = str(message)
+                if SYNC_NOTICE in msg:
+                    # torch's one-time notice that the sync debug mode is
+                    # a prototype: kept apart, it is no sync
+                    sync_notices.append(msg[:120])
+                elif "ynchroniz" in msg:
+                    # the innermost frames that led to the sync, and
+                    # whether the garbage collector was running then
+                    stack = traceback.extract_stack()[:-1][-4:]
+                    found.append(("during gc: " if in_gc[0] else "") +
+                                 " < ".join(
+                        f"{f.filename.rsplit('/', 2)[-1]}:{f.lineno} "
+                        f"({f.name})" for f in reversed(stack)))
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = note
+                torch.cuda.set_sync_debug_mode("warn")
+                td = time.perf_counter_ns()
+                try:
+                    dispatch(tick, feeds)
+                finally:
+                    dispatch_ns.append(time.perf_counter_ns() - td)
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs.append(len(found))
+            for site in found:
+                sync_sites[site] = sync_sites.get(site, 0) + 1
+            for k, c in ck_mod.LAUNCHES.items():
+                per_tick[k].append(c - before[k])
+        else:
+            dispatch(tick, feeds)
+        outs[tick] = ch.last_outputs.get(out_idx)  # canonicalized later
+
+    in_gc = [False]
+
+    def gc_phase(phase, info):
+        in_gc[0] = phase == "start"
+
+    gc.callbacks.append(gc_phase)
+    ch._dispatch = counted_dispatch
+    Recorder.query = f"{name}-compiled"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck_mod.reset_launches()
+    t0 = time.perf_counter()
+    ch.run_ticks(0, C_WARM, validate_every=1, project_ratio=4.0)
+    ch.presize((C_WARM + 1 + C_TICKS) / C_WARM, interval=C_VALIDATE)
+    ch.run_ticks(C_WARM, 1, validate_every=1, project_ratio=4.0)
+    ch.block()
+    warm_s = time.perf_counter() - t0
+    warm_replays = ch.overflow_replays
+    ch.reset_timing()
+    m0 = C_WARM + 1
+    counting[0] = True
+    t0 = time.perf_counter()
+    ch.run_ticks(m0, C_TICKS, validate_every=C_VALIDATE, block_each=True,
+                 project_ratio=4.0,
+                 snapshot_every=max(1, C_TICKS // C_VALIDATE // 2))
+    ch.block()
+    elapsed = time.perf_counter() - t0
+    counting[0] = False
+    gc.callbacks.remove(gc_phase)
+    lat = sorted(ch.step_times_ns)
+    measured_replays = ch.overflow_replays - warm_replays
+    launches = dict(ck_mod.LAUNCHES)
+    # the card's busy share over one more validation interval, profiled
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tp = time.perf_counter()
+        ch.run_ticks(m0 + C_TICKS, C_PROFILE, validate_every=C_VALIDATE,
+                     block_each=True, project_ratio=4.0)
+        ch.block()
+        wall_ms = (time.perf_counter() - tp) * 1e3
+    dev_kernels: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = dev_kernels.setdefault(ev.name[:80], [0.0, 0])
+            k[0] += ev.device_time_total / 1e3
+            k[1] += 1
+    busy_ms = sum(v[0] for v in dev_kernels.values())
+    top = sorted(dev_kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    Recorder.query = None
+    launches_all = dict(ck_mod.LAUNCHES)
+    for k in COMPILED[name]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the compiled {name} path")
+    n_ticks = m0 + C_TICKS + C_PROFILE
+    if sorted(outs) != list(range(n_ticks)):
+        fail(f"compiled {name}: outputs of ticks {sorted(outs)[:5]}...")
+    # every tick against the port's host engine on the card, same events
+    # (a check: its kernel calls are not recorded for the timing table)
+    Recorder.paused += 1
+    gen = NexmarkGenerator(cfg)
+    hh, (hhandles, hout) = build_query(name)
+    acc: dict = {}
+    rows = 0
+    for t in range(n_ticks):
+        gen.feed(hhandles, t * EVENTS_PER_TICK, (t + 1) * EVENTS_PER_TICK)
+        hh.step()
+        want = hout.to_dict()
+        b = ch.canonicalize_sink(outs[t])
+        got = b.to_dict() if b is not None else {}
+        if got != want:
+            fail(f"compiled {name} tick {t} differs from the host engine: "
+                 f"{sorted(got.items())[:5]} vs {sorted(want.items())[:5]}")
+        accumulate(acc, got)
+        rows += len(got)
+    Recorder.paused -= 1
+    n = n_ticks * EVENTS_PER_TICK
+    want = ORACLES[name](gen.generate(0, n))
+    if not want or acc != want:
+        fail(f"compiled {name} integrated output differs from the oracle")
+    say(json.dumps({
+        "phase": f"{name}-compiled", "device": "cuda",
+        "events_per_tick": EVENTS_PER_TICK, "warm_ticks": C_WARM + 1,
+        "ticks": C_TICKS, "validate_every": C_VALIDATE,
+        "trace_levels": ch.trace_levels,
+        "events_measured": C_TICKS * EVENTS_PER_TICK,
+        "events_per_s": C_TICKS * EVENTS_PER_TICK / elapsed,
+        "tick_p50_ms": lat[len(lat) // 2] / 1e6,
+        "tick_p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] / 1e6,
+        "tick_max_ms": lat[-1] / 1e6,
+        "host_engine": host_metrics.get(name),
+        "warmup_s": warm_s,
+        "overflow_replays_warmup": warm_replays,
+        "overflow_replays_measured": measured_replays,
+        "host_overhead_ms": {k: sum(v) / 1e6
+                             for k, v in ch.host_overhead_ns.items()},
+        "maintain": dict(ch.maintain_stats),
+        "busy_share": busy_ms / wall_ms,
+        "busy_ms_per_tick": busy_ms / C_PROFILE,
+        "wall_ms_per_tick_profiled": wall_ms / C_PROFILE,
+        "device_ops_per_tick": sum(v[1] for v in dev_kernels.values())
+        / C_PROFILE,
+        "device_top_ms_per_tick": {k: v[0] / C_PROFILE for k, v in top},
+        "dispatch_ms_per_measured_tick": sum(dispatch_ns) / 1e6
+        / max(len(dispatch_ns), 1),
+        "host_syncs_per_measured_tick": sum(syncs) / max(len(syncs), 1),
+        "host_syncs_measured": sum(syncs),
+        "host_sync_sites": sync_sites,
+        "sync_debug_notices": sync_notices,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "state_bytes": state_bytes(ch.states),
+        "caps": {cn.op.name: dict(cn.caps) for cn in ch.cnodes if cn.caps},
+        "launches": launches,
+        "launches_per_measured_tick": {k: sum(c) / len(c)
+                                       for k, c in per_tick.items() if c},
+        "launches_with_profiled": launches_all,
+        "output_rows": rows, "host_engine_equal": True,
+        "oracle_equal": True, "oracle_rows": len(want),
+        "note": f"{C_TICKS * EVENTS_PER_TICK} measured events: a cut of "
+                "Nexmark's usual 100M events, made for the run's time "
+                "limit",
     }))
     return launches, per_tick
 
@@ -739,6 +1164,42 @@ def rank_bound(args):
     return 2 * n * row, ops
 
 
+def agg_bound(args, out):
+    """Least bytes and operations of one aggregate-chain call on these
+    inputs: the delta and the out trace read once (every column and the
+    weights); per ladder level the key bytes the gather's probes touch
+    (two searches of ceil(log2(cap + 1)) probes per live query, no more
+    than the level's keys) only when a query reaches the gather (the
+    fast path's gate can keep every one out), and the gathered rows'
+    value and weight bytes; the q_cap-wide outputs written once. The
+    operations are those probes, the out trace's two probes per query
+    and one per spec op per delta row."""
+    delta, nk, out_trace, levels, agg, q_cap, g_cap, fast, flag = args
+    gtot = int(out[9])
+    live_q = int(out[1].sum()) if bool(flag) else 0
+    nbytes = sum(_nbytes(c) for c in (*delta.cols, delta.weights))
+    nbytes += sum(_nbytes(c) for c in (*out_trace.cols, out_trace.weights))
+    ops = 2 * q_cap * _steps(out_trace.cap) * nk
+    ops += delta.cap * (len(agg.reduce_spec()) + 1) * (2 if fast else 1)
+    if live_q:
+        for lvl in levels:
+            probes = 2 * live_q * _steps(lvl.cap) * nk
+            nbytes += min(probes * 8,
+                          sum(_nbytes(c) for c in lvl.keys[:nk]))
+            ops += probes
+        row = 8 + sum(c.element_size() for c in levels[0].vals)
+        nbytes += min(gtot, g_cap) * row
+    nouts = len(agg.out_dtypes)
+    nbytes += q_cap * (8 * nk + 1 + 8 + (3 if fast else 2) * (8 * nouts + 1))
+    return nbytes, ops
+
+
+LADDER_NO_LIBRARY = (
+    "none: torch.searchsorted finds each query's range in one level, but "
+    "no one PyTorch call expands the ranges of a ladder of levels into "
+    "the matching rows")
+
+
 def kernel_table(captured, runs, ck: Checker):
     """One row per kernel: its launches on each query's run and per
     measured tick, and its times at the largest call the queries gave
@@ -755,11 +1216,24 @@ def kernel_table(captured, runs, ck: Checker):
         if name == "rank_merge":
             kern, plain = ck_mod.rank_merge_scatter, \
                 ck_mod.rank_merge_scatter_plain
+        elif name == "agg_ladder":
+            kern, plain = agg_kernel_checked, ck_mod.agg_ladder_plain
+            # the same call with the gate on: the gather returns rows
+            import torch
+
+            on = (*args[:8], torch.ones((), dtype=torch.bool,
+                                        device=args[0].device))
+            got = ck.check(name, f"largest call on the queries, gate on "
+                           f"(size {size}, {query})", kern, plain, *on)
+            if int(got[-1]) <= 0:
+                fail("agg_ladder with the gate on gathered no rows")
         else:
             kern = getattr(ck_mod, name)
             plain = getattr(ck_mod, name + "_plain")
         ck.check(name, f"largest call on the queries (size {size}, {query})",
                  kern, plain, *args, **kw)
+        if name == "agg_ladder":
+            kern = ck_mod.agg_ladder  # timed without the launch check
         ms = time_ms(lambda: kern(*args, **kw))
         kernel_device_ms = device_ms(lambda: kern(*args, **kw))
         plain_ms = time_ms(lambda: plain(*args, **kw))
@@ -778,8 +1252,23 @@ def kernel_table(captured, runs, ck: Checker):
                 "level's cap: the same function for one key column only")
         elif name == "join_ladder":
             nbytes, ops = ladder_bound(args, kw, join=True)
+            extra["library_note"] = LADDER_NO_LIBRARY
         elif name == "gather_ladder":
             nbytes, ops = ladder_bound(args, kw, join=False)
+            extra["library_note"] = LADDER_NO_LIBRARY
+        elif name == "agg_ladder":
+            out = ck_mod.agg_ladder(*args)
+            nbytes, ops = agg_bound(args, out)
+            extra["gathered_rows"] = int(out[9])
+            extra["gate"] = bool(args[8])
+            extra["shape"] = {"delta": args[0].cap,
+                              "out_trace": args[2].cap,
+                              "levels": [lvl.cap for lvl in args[3]],
+                              "q_cap": args[5], "gather_cap": args[6]}
+            extra["library_note"] = (
+                "none: no one PyTorch call groups a delta, gathers its "
+                "groups across a ladder of sorted levels and diffs them "
+                "against the previous outputs")
         elif name == "segment_reduce":
             nbytes, ops = seg_bound(args)
             spec, vals, w, seg, nseg = args[:5]
@@ -793,6 +1282,13 @@ def kernel_table(captured, runs, ck: Checker):
                 0, idx, v, reduce=red, include_self=True))
         else:
             nbytes, ops = rank_bound(args)
+            # yardstick: one stable sort of the two runs' FIRST column
+            # concatenated, which orders one-column rows the same way
+            both = torch.cat([args[0][0], args[2][0]])
+            library_ms = time_ms(lambda: torch.sort(both, stable=True))
+            extra["library_note"] = (
+                "stable torch.sort of the one-column concatenation of both "
+                "runs: the same order for one-column rows only")
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / INT64_OPS_PER_S * 1e3
         by_query = {q: launches[name] for q, (launches, _) in runs.items()
@@ -804,7 +1300,8 @@ def kernel_table(captured, runs, ck: Checker):
             "launches_by_query": by_query,
             "launches_per_tick": {
                 q: sum(per_tick[name]) / len(per_tick[name])
-                for q, (_, per_tick) in runs.items() if q in by_query},
+                for q, (_, per_tick) in runs.items()
+                if q in by_query and per_tick[name]},
             "max_abs_err": ck.max_err[name], "ms": ms,
             "device_ms": kernel_device_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -867,6 +1364,10 @@ def main() -> int:
         recs = [stack.enter_context(r) for r in recorders()]
         for name in QUERIES:
             runs[name] = run_query(name, all_events)
+        all_events.clear()
+        # 4b. the compiled engine's paths, each with its own counts
+        for name in COMPILED:
+            runs[f"{name}-compiled"] = run_compiled(name)
     captured = {r.name: r.best for r in recs}
     captured["rank_merge"] = captured.pop("rank_merge_scatter")
 

@@ -1,0 +1,570 @@
+"""Compiled operator evals: static-capacity counterparts of the host
+operators, for the compiled engine (``compiler.py``). Counterpart of
+``dbsp_tpu/compiled/cnodes.py``.
+
+Each compiled node (``C*`` class) mirrors one host operator and expresses
+its per-tick eval as ``eval(ctx, state, inputs) -> (state', output)`` over
+static-capacity device batches. The algorithms are the host operators'
+(the ``*_impl`` steps are shared); what changes is the driver: the host
+path's grow-on-demand loops and per-eval scalar reads become static
+capacities plus device-side "required capacity" scalars
+(``ctx.require``), which the handle reads only at its validation points
+and answers with grow + replay. A tick therefore never waits on the card.
+
+The reference traces the eval sequence into one XLA program and donates
+its states. Here the evals run eagerly, and every state update makes new
+tensors: no state tensor is written in place after it is made, so the
+level views a tick hands its consumers stay valid, and a snapshot is a
+copy that nothing later overwrites.
+
+INPUT traces (:class:`CTrace`) are LEVELED: a static tuple of K level
+batches in geometric capacity classes. A tick's delta lands in a SLOT of
+level 0 (an O(|delta|) indexed copy, no merge, see
+:meth:`_Leveled._levels_append`); deeper compaction happens between
+validated intervals in the handle's ``maintain``. Consumers probe every
+level at once with the fused ladder cursors and consolidate once.
+
+OUTPUT traces (an aggregate's previous outputs, a linear aggregate's
+accumulators) are NOT leveled: consolidated, they hold one live row per
+key, so the old-value gather is an exact q_cap expansion.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from dbsp_tpu_torch.zset import kernels
+from dbsp_tpu_torch.zset.batch import Batch, bucket_cap, concat_batches
+
+# ---------------------------------------------------------------------------
+# Static leveled trace (the in-tick spine)
+# ---------------------------------------------------------------------------
+
+# Default level count K (including the tail), level 0's first capacity and
+# the capacity ratio between adjacent levels. Level capacities then follow
+# the observed requirements through grow; these only seed the ladder. A
+# harness that knows its run length passes ``compile_circuit`` a level
+# count from levels_for_run() instead of the default.
+TRACE_LEVELS = 4
+LEVEL0_CAP = 1024
+LEVEL_GROWTH = 4
+
+
+def levels_for_run(ticks: int) -> int:
+    """Level count that amortizes tail merges for a planned run length:
+    state grows by one delta a tick and level 0 holds about two, so with
+    growth g the tail absorbs a spill every ~2 g^(K-2) ticks;
+    K ~ 1 + log_g(ticks / 8) levels keeps that to a few per run (the
+    reference's tuning, one level fewer than before level 0 was
+    slotted)."""
+    if ticks <= 1:
+        return 1
+    extra = max(0.0, math.log(ticks / 8, LEVEL_GROWTH))
+    return max(1, min(4, 1 + math.ceil(extra)))
+
+
+class _Leveled:
+    """Mixin managing a leveled static trace state ``(levels, base_live)``:
+    ``levels`` is a tuple of K consolidated batches (level 0 smallest, the
+    last one the tail) and ``base_live`` a device scalar with the frozen
+    live-row count of levels 1..K-1. Capacity keys are "l0".."l{K-2}" plus
+    the subclass's ``TAIL_KEY``.
+
+    The tick only writes level 0 (a slot append) and hands levels 1..K-1
+    through unchanged; draining level k into k+1 happens between
+    validated intervals in ``CompiledHandle.maintain()``, so ``base_live``
+    stays exact between maintenance points."""
+
+    TAIL_KEY = "trace"
+    _slot_cap: Optional[int] = None
+    _append_slotted = False
+
+    def _init_level_caps(self, levels: int) -> None:
+        n = max(1, levels)
+        self.level_keys: Tuple[str, ...] = tuple(
+            f"l{k}" for k in range(n - 1)) + (self.TAIL_KEY,)
+        cap = LEVEL0_CAP
+        for key in self.level_keys[:-1]:
+            self.caps.setdefault(key, bucket_cap(cap))
+            cap *= LEVEL_GROWTH
+
+    def _levels_init(self, schema, migrated: Optional[Batch]):
+        dev = self.device
+        lv = [Batch.empty(*schema, cap=self.caps[k], device=dev)
+              for k in self.level_keys]
+        # level 0's run tag is always None: a slotted level 0 holds its
+        # runs at slot offsets
+        lv[0] = lv[0].tagged(None)
+        base = 0
+        if migrated is not None:
+            # warm start: the host spine's consolidated state becomes the
+            # tail
+            lv[-1] = migrated.with_cap(self.caps[self.TAIL_KEY])
+            base = int(migrated.live_count())
+        return (tuple(lv), torch.full((), base, dtype=torch.int64,
+                                      device=dev))
+
+    def _levels_append(self, ctx, state, delta: Batch):
+        """Append a delta to level 0, the only state a tick writes.
+
+        SLOTTED append (the steady state): level 0 is a ladder of
+        ``cap(l0) / cap(delta)`` slots of one delta capacity each. The
+        (consolidated, padded) delta goes into the next free slot by one
+        indexed copy over ``start + arange(dcap)``, where ``start`` is a
+        device scalar: no merge, no sync. Occupancy is derived (the count
+        of non-empty slots), so an empty delta re-uses its slot. The write
+        happens only when the delta has rows and a slot is free; a full
+        ladder with a non-empty delta loses the rows, but its requirement
+        then exceeds the capacity and the handle replays from its
+        snapshot (the overflow contract).
+
+        Requirements: level 0's consumed capacity (slots in use x slot
+        size) and the whole trace's live rows (``base_live`` + level 0's
+        rows) under ``TAIL_KEY``.
+
+        The slot size is pinned per instance at the first slotted append:
+        a delta of another capacity takes the consolidate-then-merge path
+        below, whose output (one consolidated run) is a valid slot ladder
+        at any size."""
+        levels, base = state
+        new = list(levels)
+        l0 = new[0]
+        dcap = delta.cap
+        can_slot = (len(self.level_keys) > 1 and dcap > 0
+                    and l0.cap % dcap == 0)
+        if can_slot and self._slot_cap is None:
+            self._slot_cap = dcap
+        slotted = can_slot and self._slot_cap == dcap
+        self._append_slotted = slotted
+        if slotted:
+            nslots = l0.cap // dcap
+            occ = (l0.weights.reshape(nslots, dcap) != 0).any(-1).sum()
+            has = (delta.weights != 0).any()
+            start = torch.clamp(occ, max=nslots - 1) * dcap
+            write = has & (occ < nslots)
+            idx = start + torch.arange(dcap, device=l0.device)
+
+            def put(dst, src):
+                # out of place: the pre-tick level 0 stays what the
+                # consumers' pre views read
+                keep = dst.index_select(0, idx)
+                return dst.index_copy(
+                    0, idx, torch.where(write, src.to(dst.dtype), keep))
+
+            l0_live = (l0.weights != 0).sum() + (delta.weights != 0).sum()
+            new[0] = Batch(
+                tuple(put(k, dk) for k, dk in zip(l0.keys, delta.keys)),
+                tuple(put(v, dv) for v, dv in zip(l0.vals, delta.vals)),
+                put(l0.weights, delta.weights))
+            ctx.require(self, self.level_keys[0],
+                        (occ + has.to(torch.int64)) * dcap)
+            if self.TAIL_KEY != self.level_keys[0]:
+                ctx.require(self, self.TAIL_KEY, base + l0_live)
+            return (tuple(new), base)
+        if self._slot_cap is not None:
+            # level 0 may hold slot runs: canonicalize before the merge,
+            # whose contract needs sorted inputs
+            nk0 = len(l0.keys)
+            cols0, w0 = kernels.consolidate_cols(l0.cols, l0.weights)
+            l0 = Batch(cols0[:nk0], cols0[nk0:], w0)
+        m0 = l0.merge_with(delta)
+        live0 = m0.live_count()
+        ctx.require(self, self.level_keys[0], live0)
+        if self.TAIL_KEY != self.level_keys[0]:
+            ctx.require(self, self.TAIL_KEY, base + live0)
+        new[0] = m0.with_cap(self.caps[self.level_keys[0]]).tagged(None)
+        return (tuple(new), base)
+
+    def _view_levels(self, levels) -> Tuple[Batch, ...]:
+        """The level tuple consumers probe: a slotted level 0 expands into
+        its per-slot runs (static slices, each a consolidated batch); the
+        deeper levels pass through. The fused cursors fan over the whole
+        expansion in one launch, so extra slots cost probe lanes, not
+        launches."""
+        slot = self._slot_cap
+        l0 = levels[0]
+        if not slot or l0.cap == slot or l0.cap % slot != 0:
+            return tuple(levels)
+        slices = tuple(
+            Batch(tuple(k[i * slot:(i + 1) * slot] for k in l0.keys),
+                  tuple(v[i * slot:(i + 1) * slot] for v in l0.vals),
+                  l0.weights[i * slot:(i + 1) * slot], runs=(slot,))
+            for i in range(l0.cap // slot))
+        return (*slices, *levels[1:])
+
+    def _levels_repad(self, state):
+        """Re-fit the levels to the current capacities (after a grow). A
+        slotted level 0 is consolidated first: the grow may have changed
+        its producer's delta capacity, and one consolidated run is a valid
+        slot ladder at every slot size."""
+        levels, base = state
+        out = []
+        for i, (b, k) in enumerate(zip(levels, self.level_keys)):
+            if i == 0 and self._slot_cap is not None:
+                b = b.consolidate().with_cap(self.caps[k]).tagged(None)
+            elif i == 0:
+                b = b.with_cap(self.caps[k]).tagged(None)
+            else:
+                b = b.with_cap(self.caps[k]).tagged((self.caps[k],))
+            out.append(b)
+        return (tuple(out), base)
+
+
+def static_append(trace: Batch, delta: Batch) -> Tuple[Batch, torch.Tensor]:
+    """Merge ``delta`` into a fixed-capacity SINGLE-batch trace: (the new
+    trace at the same capacity, its required live rows). Live rows pack
+    to the front after a merge, so cutting back to the capacity drops only
+    dead tail, unless the requirement exceeds it, which the handle
+    detects. The state layout of operator OUTPUT traces."""
+    merged = trace.merge_with(delta)
+    required = merged.live_count()
+    return merged.with_cap(trace.cap), required
+
+
+def join_levels(delta: Batch, levels: Sequence[Batch], nk: int, fn,
+                out_cap: int) -> Tuple[Batch, torch.Tensor]:
+    """Join a delta against ALL trace levels into ONE out_cap buffer with
+    the fused cursor (one ladder-join launch). The returned requirement is
+    the UNCLAMPED total across levels: past ``out_cap`` the tail matches
+    drop off and the handle grows the cap and replays."""
+    from dbsp_tpu_torch.zset import cursor
+
+    assert levels, "join_levels: trace has no levels"
+    out, total = cursor.join_ladder(delta, levels, nk, fn, out_cap)
+    return out, total.to(torch.int64)
+
+
+def ensure_side_cap(cn: "CNode", key: str, floor: int) -> int:
+    """Size a fused join side's shared output buffer on its FIRST eval, on
+    ``bucket_cap``'s power-of-two ladder (the one grow climbs)."""
+    if not cn.caps.get(key):
+        cn.caps[key] = bucket_cap(max(64, floor))
+    return cn.caps[key]
+
+
+def trim_queries(ctx, cn: "CNode", qkeys, qlive):
+    """Cut the front-packed unique-key buffer to the "queries" capacity,
+    requirement-checked: every gather, reduce and diff after it is sized
+    by this buffer, not by the delta's capacity."""
+    if not cn.caps.get("queries"):
+        cn.caps["queries"] = 64
+    q_cap = cn.caps["queries"]
+    ctx.require(cn, "queries", qlive.sum())
+    return tuple(c[:q_cap] for c in qkeys), qlive[:q_cap]
+
+
+@dataclasses.dataclass
+class CView:
+    """What a trace hands its consumers each tick: the delta, and the
+    LEVEL TUPLES of the trace before (z^-1) and after this tick's
+    append."""
+
+    delta: Batch
+    pre: Tuple[Batch, ...]
+    post: Tuple[Batch, ...]
+
+
+class CNode:
+    """Base: the compiled counterpart of one circuit node.
+
+    ``caps`` holds named static capacities; ``init_state`` builds the
+    state (None for stateless nodes); ``eval`` runs one tick with no read
+    of a device value on the host. ``MONOTONE_CAPS`` names the capacities
+    that integrate the stream (trace sizes): ``presize`` projects them
+    linearly for a planned run length."""
+
+    MONOTONE_CAPS: frozenset = frozenset()
+
+    def __init__(self, node, op):
+        self.node = node
+        self.op = op
+        self.caps: Dict[str, int] = {}
+        self.device: Optional[torch.device] = None  # set by the handle
+
+    def init_state(self):
+        return None
+
+    def repad_state(self, st):
+        """Re-fit a snapshotted state to the CURRENT capacities (after a
+        grow); the default handles single-batch trace states."""
+        cap_key = next((k for k in ("trace", "out_trace", "acc_trace")
+                        if k in self.caps), None)
+        if cap_key and isinstance(st, Batch) and st.cap != self.caps[cap_key]:
+            return st.with_cap(self.caps[cap_key])
+        return st
+
+    def note_requirement(self, key: str, required: int) -> None:
+        """Called with each VALIDATED requirement: lets a node reclassify
+        a capacity once its behavior contradicts a static assumption."""
+
+    def eval(self, ctx, state, inputs):  # -> (state', output)
+        raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# Stateless nodes
+# ---------------------------------------------------------------------------
+
+
+class CInput(CNode):
+    """Source: the tick's feed batch (from the generator function or the
+    feeds argument), injected through ``ctx.feeds``; it must be
+    consolidated, as the generator's are."""
+
+    def eval(self, ctx, state, inputs):
+        batch = ctx.feeds.get(self.node.index)
+        if batch is None:
+            batch = Batch.empty(self.op.key_dtypes, self.op.val_dtypes,
+                                device=self.device)
+        return None, batch
+
+
+class CPure(CNode):
+    """Map / filter: the host operator's eval is already a pure Batch ->
+    Batch function. With ``defer_consolidate`` (the handle's placement
+    pass) a map skips its trailing consolidation: every consumer
+    canonicalizes anyway."""
+
+    defer_consolidate = False
+
+    def eval(self, ctx, state, inputs):
+        if self.defer_consolidate:
+            return None, self.op.eval_raw(inputs[0])
+        return None, self.op.eval(inputs[0])
+
+
+class COutput(CNode):
+    """Sink: expose the batch as the tick's output."""
+
+    def eval(self, ctx, state, inputs):
+        ctx.outputs[self.node.index] = inputs[0]
+        return None, None
+
+
+# ---------------------------------------------------------------------------
+# Stateful nodes
+# ---------------------------------------------------------------------------
+
+
+def _migrate_spine(spine) -> Optional[Batch]:
+    """One consolidated batch of a host-engine spine (None if empty): the
+    state bridge of a warm start."""
+    if not spine.batches:
+        return None
+    return spine.consolidated()
+
+
+class CTrace(CNode, _Leveled):
+    """integrate_trace as a leveled static trace (see module doc)."""
+
+    MONOTONE_CAPS = frozenset({"trace"})
+    TAIL_KEY = "trace"
+    DEFAULT_CAP = 1024
+
+    def __init__(self, node, op, levels: int = TRACE_LEVELS):
+        super().__init__(node, op)
+        self._migrated = _migrate_spine(op.spine)
+        live = 0 if self._migrated is None \
+            else int(self._migrated.live_count())
+        self.caps["trace"] = bucket_cap(max(live * 2, self.DEFAULT_CAP))
+        self._init_level_caps(levels)
+
+    def init_state(self):
+        sp = self.op.spine
+        return self._levels_init((sp.key_dtypes, sp.val_dtypes),
+                                 self._migrated)
+
+    def repad_state(self, st):
+        return self._levels_repad(st)
+
+    def eval(self, ctx, state, inputs):
+        delta = inputs[0]
+        post = self._levels_append(ctx, state, delta)
+        pre = self._view_levels(state[0])
+        # lazy post view: after a slotted append the post-tick trace IS
+        # pre + delta, so consumers probe the delta as one more level
+        # instead of the slot just written (the same Z-set)
+        if self._append_slotted and delta.sorted_runs == 1:
+            post_view: Tuple[Batch, ...] = (*pre, delta)
+        else:
+            post_view = self._view_levels(post[0])
+        return post, CView(delta=delta, pre=pre, post=post_view)
+
+
+class CJoin(CNode):
+    """Bilinear incremental join over CViews (the host JoinOp's
+    semantics: dL joins trace(R) after the tick, dR joins trace(L) before
+    it), each side into one shared buffer, one consolidation."""
+
+    defer_consolidate = False
+
+    def __init__(self, node, op):
+        super().__init__(node, op)
+        self.caps["left"] = 0    # sized on the first eval from delta caps
+        self.caps["right"] = 0
+
+    def eval(self, ctx, state, inputs):
+        left, right = inputs
+        lcore = self.op._left_core
+        rcore = self.op._right_core
+        nk = lcore.nk
+        cap_l = ensure_side_cap(self, "left", left.delta.cap)
+        cap_r = ensure_side_cap(self, "right", right.delta.cap)
+        lout, ltot = join_levels(left.delta, right.post, nk, lcore.fn, cap_l)
+        ctx.require(self, "left", ltot)
+        rout, rtot = join_levels(right.delta, left.pre, nk, rcore.fn, cap_r)
+        ctx.require(self, "right", rtot)
+        out = concat_batches([lout, rout])
+        if not self.defer_consolidate:
+            out = out.consolidate()
+        return None, out
+
+
+class CAggregate(CNode):
+    """General incremental aggregate (Max): gather the touched groups from
+    the input trace view, reduce, diff against the node's own output
+    trace, all in one ``cuda_kernels.agg_ladder`` call.
+
+    Insert-combinable aggregates take a fast path: a group whose delta
+    only inserts combines the delta's own reduction with the previous
+    output (new max = max(old max, delta max)), so no history comes back
+    from the input trace. That is sound only while every net weight in the
+    trace is non-negative, so the state carries an ``ever_negative`` flag:
+    once any retraction has entered the stream, touched groups re-gather
+    (the slow path). The flag is a device bool and gates the gather at run
+    time; it never needs a host read."""
+
+    MONOTONE_CAPS = frozenset({"out_trace", "gather"})
+
+    def __init__(self, node, op):
+        super().__init__(node, op)
+        self.caps["gather"] = 0
+        self.caps["out_trace"] = 0
+        if getattr(op.agg, "insert_combinable", False):
+            # the gather only serves retracted groups: not monotone...
+            self.MONOTONE_CAPS = frozenset({"out_trace"})
+
+    def note_requirement(self, key, required):
+        # ...until a retraction engages the slow path: from then on every
+        # touched group re-gathers its whole history, which grows with the
+        # run
+        if key == "gather" and required > 0 \
+                and "gather" not in self.MONOTONE_CAPS:
+            self.MONOTONE_CAPS = self.MONOTONE_CAPS | {"gather"}
+
+    def init_state(self):
+        dev = self.device
+        migrated = _migrate_spine(self.op.out_spine)
+        if not self.caps["out_trace"]:
+            live = 0 if migrated is None else int(migrated.live_count())
+            self.caps["out_trace"] = bucket_cap(max(live * 2, 1024))
+        if migrated is not None:
+            # a host-warmed spine has an unknown retraction history: the
+            # fast path must assume the worst
+            return (migrated.with_cap(self.caps["out_trace"]),
+                    torch.ones((), dtype=torch.bool, device=dev))
+        return (Batch.empty(*self.op.out_schema, cap=self.caps["out_trace"],
+                            device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+
+    def repad_state(self, st):
+        batch, ever_neg = st
+        if batch.cap != self.caps["out_trace"]:
+            batch = batch.with_cap(self.caps["out_trace"])
+        return (batch, ever_neg)
+
+    def eval(self, ctx, state, inputs):
+        from dbsp_tpu_torch.operators.aggregate import _diff_outputs_impl
+        from dbsp_tpu_torch.zset import cuda_kernels
+
+        view: CView = inputs[0]
+        out_trace, ever_neg = state
+        agg = self.op.agg
+        nk = len(self.op.key_dtypes)
+        delta = view.delta
+        if not self.caps.get("queries"):
+            self.caps["queries"] = 64  # trim_queries' seed, same contract
+        # the unique-key buffer never holds more rows than the delta has
+        q_cap = min(self.caps["queries"], delta.cap)
+        fast = getattr(agg, "insert_combinable", False)
+        if not self.caps["gather"]:
+            self.caps["gather"] = 64 if fast else max(64, 2 * q_cap)
+
+        ever_neg = ever_neg | (delta.weights < 0).any()
+        flag = ever_neg if fast else torch.ones(
+            (), dtype=torch.bool, device=self.device)
+        (qkeys, qlive, nq, old_vals, old_present, lad_vals, lad_present,
+         d_vals, d_present, gtot) = cuda_kernels.agg_ladder(
+            delta, nk, out_trace, view.post, agg, q_cap,
+            self.caps["gather"], fast, flag)
+        ctx.require(self, "queries", nq)
+        ctx.require(self, "gather", gtot)
+        if fast:
+            fast_vals = agg.combine(old_vals, old_present, d_vals, d_present)
+            fast_present = old_present | d_present
+            slow = qlive & ever_neg
+            new_vals = tuple(torch.where(slow, sv.to(fv.dtype), fv)
+                             for sv, fv in zip(lad_vals, fast_vals))
+            new_present = torch.where(slow, lad_present, fast_present)
+        else:
+            new_vals, new_present = lad_vals, lad_present
+
+        cols, w = _diff_outputs_impl(qkeys, qlive, new_vals, new_present,
+                                     old_vals, old_present)
+        out = Batch(cols[:nk], cols[nk:], w, runs=(int(w.shape[-1]),))
+        state2, required = static_append(out_trace, out)
+        ctx.require(self, "out_trace", required)
+        return (state2, ever_neg), out
+
+
+class CLinearAggregate(CNode):
+    """Linear aggregate: per-key accumulator state in a static trace batch
+    (one live row per key; not leveled, see module doc)."""
+
+    MONOTONE_CAPS = frozenset({"acc_trace"})
+
+    def __init__(self, node, op):
+        super().__init__(node, op)
+        self.caps["acc_trace"] = 0
+
+    def init_state(self):
+        migrated = _migrate_spine(self.op.acc_spine)
+        if not self.caps["acc_trace"]:
+            live = 0 if migrated is None else int(migrated.live_count())
+            self.caps["acc_trace"] = bucket_cap(max(live * 2, 1024))
+        if migrated is not None:
+            return migrated.with_cap(self.caps["acc_trace"])
+        return Batch.empty(*self.op._state_schema,
+                           cap=self.caps["acc_trace"], device=self.device)
+
+    def eval(self, ctx, state, inputs):
+        from dbsp_tpu_torch.operators.aggregate import (_gather_level_impl,
+                                                        _unique_keys_impl)
+        from dbsp_tpu_torch.operators.aggregate_linear import (
+            _combine_diff_impl, _net_state_impl, _weigh_deltas_impl)
+
+        agg = self.op.agg
+        nk = len(self.op.key_dtypes)
+        delta = inputs[0]
+        qkeys, qlive = _unique_keys_impl(delta, nk)
+        qkeys, qlive = trim_queries(ctx, self, qkeys, qlive)
+        q_cap = qlive.shape[-1]
+        acc_delta, cnt_delta = _weigh_deltas_impl(delta, agg, nk)
+        # per-unique-key segment sums, packed like qkeys: trim to match
+        # (ids past q_cap are caught by the "queries" requirement)
+        acc_delta = tuple(a[:q_cap] for a in acc_delta)
+        cnt_delta = cnt_delta[:q_cap]
+
+        # the consolidated accumulator trace holds one live row per key, so
+        # a q_cap expansion is exact: no requirement needed
+        qrow, vals, w, _ = _gather_level_impl(qkeys, qlive, state, q_cap)
+        old = _net_state_impl((qrow, vals, w), q_cap)
+        out, sdiff = _combine_diff_impl(qkeys, qlive, acc_delta, cnt_delta,
+                                        *old, agg, nk)
+        state2, required = static_append(state, sdiff)
+        ctx.require(self, "acc_trace", required)
+        return state2, out

@@ -4,32 +4,57 @@
 //
 // Every column reaches a kernel as an int64 device pointer; the Python
 // wrapper widens narrower integer and bool columns first, as the Pallas
-// wrappers do. Pointers and small integers travel BY VALUE in one `Args`
-// block (kernel parameters, no host-to-device copy and no sync per launch);
-// each wrapper documents its own slot layout.
+// wrappers do. Pointers and small integers travel in one argument block
+// of int64 slots; each wrapper documents its own slot layout. Kernels are
+// templates over where the block lives:
+//   * `Args`: BY VALUE as a kernel parameter, for up to ARGS_MAX slots (no
+//     host-to-device copy and no sync per launch);
+//   * `ArgTable`: a device-resident copy of any number of slots, for wider
+//     ladders (the wrapper uploads it asynchronously from pinned memory).
+// A launcher takes the host slots, their count and an optional device
+// table, and instantiates the kernel for the one that is given.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 typedef long long i64;
 typedef unsigned long long u64;
 
 // 448 slots = 3,584 bytes, under the 4,096-byte kernel-parameter limit
-// together with the scalar parameters. The wrappers check the fit.
+// together with the scalar parameters. A launch with more slots takes the
+// device table instead.
 #define ARGS_MAX 448
 // widest row a search compares (key columns, or all columns of a merge)
 #define MAX_COLS 16
 
 struct Args {
   i64 v[ARGS_MAX];
+  __device__ __forceinline__ i64 operator[](int i) const { return v[i]; }
 };
 
-__device__ __forceinline__ const i64* in_col(const Args& a, int slot) {
-  return reinterpret_cast<const i64*>(a.v[slot]);
+struct ArgTable {
+  const i64* v;
+  __device__ __forceinline__ i64 operator[](int i) const { return v[i]; }
+};
+
+// The by-value block of `n` host slots (n <= ARGS_MAX, which the wrapper
+// guarantees by passing a device table above it).
+static inline Args args_by_value(const i64* host, int n) {
+  Args a;
+  std::memcpy(a.v, host, static_cast<size_t>(n) * sizeof(i64));
+  return a;
 }
 
-__device__ __forceinline__ i64* out_col(const Args& a, int slot) {
-  return reinterpret_cast<i64*>(a.v[slot]);
+template <class A>
+__device__ __forceinline__ const i64* in_col(const A& a, int slot) {
+  return reinterpret_cast<const i64*>(a[slot]);
+}
+
+template <class A>
+__device__ __forceinline__ i64* out_col(const A& a, int slot) {
+  return reinterpret_cast<i64*>(a[slot]);
 }
 
 // Insertion point of query row `qi` into the sorted table rows [0, n):
@@ -37,8 +62,8 @@ __device__ __forceinline__ i64* out_col(const Args& a, int slot) {
 // slot q0 + c. STRICT counts the rows < query (side "left"); otherwise the
 // rows <= query (side "right"). The loop runs to convergence, so the
 // result equals the fixed-step search of the reference bit for bit.
-template <bool STRICT>
-__device__ i64 lex_search(const Args& a, int tab0, int tab_stride, int q0,
+template <bool STRICT, class A>
+__device__ i64 lex_search(const A& a, int tab0, int tab_stride, int q0,
                           int ncols, i64 n, i64 qi) {
   i64 q[MAX_COLS];
   for (int c = 0; c < ncols; ++c) q[c] = in_col(a, q0 + c)[qi];

@@ -57,13 +57,14 @@ struct Layout {
   __host__ __device__ int out() const { return caps() + K; }
 };
 
-__global__ void probe_kernel(Args a, Layout L, i64 m, i64* lo_out,
+template <class A>
+__global__ void probe_kernel(A a, Layout L, i64 m, i64* lo_out,
                              i64* cnt_out) {
   const i64 t = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= static_cast<i64>(L.K) * m) return;
   const int k = static_cast<int>(t / m);
   const i64 i = t - static_cast<i64>(k) * m;
-  const i64 cap = a.v[L.caps() + k];
+  const i64 cap = a[L.caps() + k];
   const int q = L.q();
   i64 lo = lex_search<true>(a, k, L.K, q, L.nk, cap, i);
   i64 hi = lex_search<false>(a, k, L.K, q + L.nk, L.nk, cap, i);
@@ -143,7 +144,8 @@ __global__ void total_kernel(const i64* off, const i64* cnt, i64 n,
   *total = off[n - 1] + cnt[n - 1];
 }
 
-__global__ void gather_kernel(Args a, Layout L, i64 m, i64 out_cap, int join,
+template <class A>
+__global__ void gather_kernel(A a, Layout L, i64 m, i64 out_cap, int join,
                               const i64* lo, const i64* off,
                               const i64* total_p, int* qrow, i64* w) {
   const i64 j = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -173,6 +175,22 @@ __global__ void gather_kernel(Args a, Layout L, i64 m, i64 out_cap, int join,
   w[j] = join ? wrap_mul(in_col(a, L.q() + 2 * L.nk)[i], lw) : lw;
 }
 
+template <class A>
+void launch(const A& a, const Layout& L, i64 m, i64 out_cap, int join,
+            int* qrow, i64* w, i64* total, i64* scratch,
+            cudaStream_t stream) {
+  const i64 n = static_cast<i64>(L.K) * m;
+  i64* lo = scratch;
+  i64* cnt = scratch + n;
+  i64* off = scratch + 2 * n;
+  probe_kernel<<<blocks_for(n, THREADS), THREADS, 0, stream>>>(a, L, m, lo,
+                                                               cnt);
+  exclusive_scan(cnt, off, n, scratch + 3 * n, stream);
+  total_kernel<<<1, 1, 0, stream>>>(off, cnt, n, total);
+  gather_kernel<<<blocks_for(out_cap, THREADS), THREADS, 0, stream>>>(
+      a, L, m, out_cap, join, lo, off, total, qrow, w);
+}
+
 }  // namespace
 
 extern "C" {
@@ -183,21 +201,19 @@ i64 ladder_scratch_elems(int K, i64 m) {
   return 3 * n + scan_scratch(n);
 }
 
-// Returns cudaGetLastError() after the launches (0 on success).
-int ladder_consumer(const Args* args, int K, int nk, int ng, i64 m,
-                    i64 out_cap, int join, int* qrow, i64* w, i64* total,
-                    i64* scratch, cudaStream_t stream) {
+// `args` holds the `n_args` host slots; `table`, when not null, is their
+// device copy and is what the kernels read. Returns cudaGetLastError()
+// after the launches (0 on success).
+int ladder_consumer(const i64* args, int n_args, const i64* table, int K,
+                    int nk, int ng, i64 m, i64 out_cap, int join, int* qrow,
+                    i64* w, i64* total, i64* scratch, cudaStream_t stream) {
   const Layout L{K, nk, ng};
-  const i64 n = static_cast<i64>(K) * m;
-  i64* lo = scratch;
-  i64* cnt = scratch + n;
-  i64* off = scratch + 2 * n;
-  probe_kernel<<<blocks_for(n, THREADS), THREADS, 0, stream>>>(*args, L, m,
-                                                               lo, cnt);
-  exclusive_scan(cnt, off, n, scratch + 3 * n, stream);
-  total_kernel<<<1, 1, 0, stream>>>(off, cnt, n, total);
-  gather_kernel<<<blocks_for(out_cap, THREADS), THREADS, 0, stream>>>(
-      *args, L, m, out_cap, join, lo, off, total, qrow, w);
+  if (table)
+    launch(ArgTable{table}, L, m, out_cap, join, qrow, w, total, scratch,
+           stream);
+  else
+    launch(args_by_value(args, n_args), L, m, out_cap, join, qrow, w, total,
+           scratch, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,33 +34,45 @@ namespace {
 
 constexpr int THREADS = 256;
 
-template <bool STRICT>
-__global__ void probe_ladder_kernel(Args a, int K, int ncols, i64 m,
+template <bool STRICT, class A>
+__global__ void probe_ladder_kernel(A a, int K, int ncols, i64 m,
                                     int* out) {
   const i64 t = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= static_cast<i64>(K) * m) return;
   const int k = static_cast<int>(t / m);
   const i64 i = t - static_cast<i64>(k) * m;
   const int q = ncols * K;
-  const i64 cap = a.v[q + ncols + k];
+  const i64 cap = a[q + ncols + k];
   out[t] = static_cast<int>(lex_search<STRICT>(a, k, K, q, ncols, cap, i));
+}
+
+template <class A>
+void launch(const A& a, int K, int ncols, i64 m, int strict, int* out,
+            cudaStream_t stream) {
+  const i64 n = static_cast<i64>(K) * m;
+  if (strict)
+    probe_ladder_kernel<true><<<blocks_for(n, THREADS), THREADS, 0,
+                                stream>>>(a, K, ncols, m, out);
+  else
+    probe_ladder_kernel<false><<<blocks_for(n, THREADS), THREADS, 0,
+                                 stream>>>(a, K, ncols, m, out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int lex_probe_ladder(const Args* args, int K, int ncols, i64 m, int strict,
-                     int* out, cudaStream_t stream) {
-  const i64 n = static_cast<i64>(K) * m;
-  if (n > 0) {
-    if (strict)
-      probe_ladder_kernel<true><<<blocks_for(n, THREADS), THREADS, 0,
-                                  stream>>>(*args, K, ncols, m, out);
+// `args` holds the `n_args` host slots; `table`, when not null, is their
+// device copy and is what the kernel reads. Returns cudaGetLastError()
+// after the launch (0 on success).
+int lex_probe_ladder(const i64* args, int n_args, const i64* table, int K,
+                     int ncols, i64 m, int strict, int* out,
+                     cudaStream_t stream) {
+  if (static_cast<i64>(K) * m > 0) {
+    if (table)
+      launch(ArgTable{table}, K, ncols, m, strict, out, stream);
     else
-      probe_ladder_kernel<false><<<blocks_for(n, THREADS), THREADS, 0,
-                                   stream>>>(*args, K, ncols, m, out);
+      launch(args_by_value(args, n_args), K, ncols, m, strict, out, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

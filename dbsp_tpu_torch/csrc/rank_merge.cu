@@ -28,7 +28,8 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__global__ void rank_merge_kernel(Args a, int ncols, i64 na, i64 nb) {
+template <class A>
+__global__ void rank_merge_kernel(A a, int ncols, i64 na, i64 nb) {
   const i64 t = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= na + nb) return;
   const int b0 = ncols + 1;
@@ -52,12 +53,20 @@ __global__ void rank_merge_kernel(Args a, int ncols, i64 na, i64 nb) {
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int rank_merge(const Args* args, int ncols, i64 na, i64 nb,
-               cudaStream_t stream) {
-  if (na + nb > 0)
-    rank_merge_kernel<<<blocks_for(na + nb, THREADS), THREADS, 0, stream>>>(
-        *args, ncols, na, nb);
+// `args` holds the `n_args` host slots; `table`, when not null, is their
+// device copy and is what the kernel reads. Returns cudaGetLastError()
+// after the launch (0 on success).
+int rank_merge(const i64* args, int n_args, const i64* table, int ncols,
+               i64 na, i64 nb, cudaStream_t stream) {
+  if (na + nb > 0) {
+    const unsigned int blocks = blocks_for(na + nb, THREADS);
+    if (table)
+      rank_merge_kernel<<<blocks, THREADS, 0, stream>>>(ArgTable{table},
+                                                        ncols, na, nb);
+    else
+      rank_merge_kernel<<<blocks, THREADS, 0, stream>>>(
+          args_by_value(args, n_args), ncols, na, nb);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,14 +40,16 @@ struct Layout {
   __host__ __device__ int out(int o) const { return nv + 2 + 3 * nops + o; }
 };
 
-__global__ void fill_kernel(Args a, Layout L, i64 nseg, i64* wsum) {
+template <class A>
+__global__ void fill_kernel(A a, Layout L, i64 nseg, i64* wsum) {
   const i64 s = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= nseg) return;
-  for (int o = 0; o < L.nops; ++o) out_col(a, L.out(o))[s] = a.v[L.op(o) + 2];
+  for (int o = 0; o < L.nops; ++o) out_col(a, L.out(o))[s] = a[L.op(o) + 2];
   wsum[s] = 0;
 }
 
-__global__ void rows_kernel(Args a, Layout L, i64 n, i64 nseg, int any_avg,
+template <class A>
+__global__ void rows_kernel(A a, Layout L, i64 n, i64 nseg, int any_avg,
                             i64* wsum) {
   const i64 r = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
@@ -56,8 +58,8 @@ __global__ void rows_kernel(Args a, Layout L, i64 n, i64 nseg, int any_avg,
   const i64 w = in_col(a, L.nv)[r];
   const i64 wpos = w > 0 ? w : 0;
   for (int o = 0; o < L.nops; ++o) {
-    const int code = static_cast<int>(a.v[L.op(o)]);
-    const int col = static_cast<int>(a.v[L.op(o) + 1]);
+    const int code = static_cast<int>(a[L.op(o)]);
+    const int col = static_cast<int>(a[L.op(o) + 1]);
     i64* out = out_col(a, L.out(o)) + s;
     switch (code) {
       case COUNT:
@@ -90,12 +92,13 @@ __device__ __forceinline__ i64 floor_div(i64 x, i64 y) {
   return q;
 }
 
-__global__ void fin_avg_kernel(Args a, Layout L, i64 nseg, const i64* wsum) {
+template <class A>
+__global__ void fin_avg_kernel(A a, Layout L, i64 nseg, const i64* wsum) {
   const i64 s = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= nseg) return;
   const i64 c = wsum[s] > 1 ? wsum[s] : 1;
   for (int o = 0; o < L.nops; ++o) {
-    if (a.v[L.op(o)] != AVG) continue;
+    if (a[L.op(o)] != AVG) continue;
     i64* out = out_col(a, L.out(o)) + s;
     const i64 sum = *out;
     // where(s >= 0, s // c, -((-s) // c)): truncation toward zero, with
@@ -104,23 +107,35 @@ __global__ void fin_avg_kernel(Args a, Layout L, i64 nseg, const i64* wsum) {
   }
 }
 
+template <class A>
+void launch(const A& a, const Layout& L, i64 n, i64 nseg, int any_avg,
+            i64* wsum, cudaStream_t stream) {
+  fill_kernel<<<blocks_for(nseg, THREADS), THREADS, 0, stream>>>(a, L, nseg,
+                                                                 wsum);
+  if (n > 0)
+    rows_kernel<<<blocks_for(n, THREADS), THREADS, 0, stream>>>(
+        a, L, n, nseg, any_avg, wsum);
+  if (any_avg)
+    fin_avg_kernel<<<blocks_for(nseg, THREADS), THREADS, 0, stream>>>(
+        a, L, nseg, wsum);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launches (0 on success). `wsum` is
-// int64 scratch of nseg elements.
-int segment_reduce(const Args* args, int nv, int nops, i64 n, i64 nseg,
-                   int any_avg, i64* wsum, cudaStream_t stream) {
+// `args` holds the `n_args` host slots; `table`, when not null, is their
+// device copy and is what the kernels read. Returns cudaGetLastError()
+// after the launches (0 on success). `wsum` is int64 scratch of nseg
+// elements.
+int segment_reduce(const i64* args, int n_args, const i64* table, int nv,
+                   int nops, i64 n, i64 nseg, int any_avg, i64* wsum,
+                   cudaStream_t stream) {
   const Layout L{nv, nops};
-  fill_kernel<<<blocks_for(nseg, THREADS), THREADS, 0, stream>>>(*args, L,
-                                                                 nseg, wsum);
-  if (n > 0)
-    rows_kernel<<<blocks_for(n, THREADS), THREADS, 0, stream>>>(
-        *args, L, n, nseg, any_avg, wsum);
-  if (any_avg)
-    fin_avg_kernel<<<blocks_for(nseg, THREADS), THREADS, 0, stream>>>(
-        *args, L, nseg, wsum);
+  if (table)
+    launch(ArgTable{table}, L, n, nseg, any_avg, wsum, stream);
+  else
+    launch(args_by_value(args, n_args), L, n, nseg, any_avg, wsum, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

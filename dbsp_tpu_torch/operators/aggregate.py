@@ -12,6 +12,10 @@ Counterpart of ``dbsp_tpu/operators/aggregate.py``. Per tick:
      and -1 old / +1 new emitted where a key's output changed.
 
 Every step's cost follows the delta and the touched groups, not the state.
+
+The ``*_impl`` forms keep full capacity and return device scalars, with no
+read of a device value on the host: the compiled engine's nodes
+(``compiled/cnodes.py``) call them inside a tick.
 """
 
 from __future__ import annotations
@@ -42,8 +46,18 @@ class Aggregator:
 
     out_dtypes: Tuple = ()
     name = "agg"
+    #: semigroup aggregates set this: when a group's delta holds only
+    #: insertions, the new output is combine(old output, reduce(delta)),
+    #: with no re-gather of the group's history (the compiled fast path)
+    insert_combinable = False
 
     def reduce_spec(self) -> Tuple[Tuple[str, int], ...]:
+        raise NotImplementedError
+
+    def combine(self, a_vals, a_present, b_vals, b_present):
+        """Semigroup combine of two per-segment partial outputs (needed
+        only when ``insert_combinable``); an absent side must not leak its
+        identity into the result."""
         raise NotImplementedError
 
 
@@ -52,9 +66,15 @@ class Max(Aggregator):
     col: int = 0
     out_dtypes = (torch.int64,)
     name = "max"
+    insert_combinable = True
 
     def reduce_spec(self):
         return (("max", self.col),)
+
+    def combine(self, a_vals, a_present, b_vals, b_present):
+        a, b = a_vals[0], b_vals[0].to(a_vals[0].dtype)
+        return (torch.where(a_present & b_present, torch.maximum(a, b),
+                            torch.where(a_present, a, b)),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,22 +106,24 @@ def _seg_out_dtype(op: str, col: int, val_cols, weights) -> torch.dtype:
 
 
 def segment_reduce(spec, val_cols, weights: torch.Tensor, seg: torch.Tensor,
-                   num_segments: int) -> Tuple[torch.Tensor, ...]:
-    """A whole reduce spec per segment id in ONE call: the CUDA
-    segment-reduce kernel on a CUDA tensor, its plain version on a CPU
-    tensor (``cuda_kernels.segment_reduce``)."""
+                   num_segments: int, seg_reduce=None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """A whole reduce spec per segment id in ONE call: by default
+    ``cuda_kernels.segment_reduce`` (the CUDA segment-reduce kernel on a
+    CUDA tensor, its plain version on a CPU tensor); ``seg_reduce``
+    names another function of its signature (the plain version)."""
     out_dtypes = tuple(_seg_out_dtype(op, col, val_cols, weights)
                        for op, col in spec)
-    return cuda_kernels.segment_reduce(spec, val_cols, weights, seg,
-                                       num_segments, out_dtypes)
+    fn = seg_reduce or cuda_kernels.segment_reduce
+    return fn(spec, val_cols, weights, seg, num_segments, out_dtypes)
 
 
 def reduce_with_present(agg: Aggregator, val_cols, weights, seg,
-                        num_segments: int):
+                        num_segments: int, seg_reduce=None):
     """(outputs, presence) in one segment reduction: the aggregator's spec
     plus a ``present`` op."""
     res = segment_reduce((*agg.reduce_spec(), ("present", 0)), val_cols,
-                         weights, seg, num_segments)
+                         weights, seg, num_segments, seg_reduce)
     return tuple(res[:-1]), res[-1]
 
 
@@ -110,22 +132,51 @@ def reduce_with_present(agg: Aggregator, val_cols, weights, seg,
 # ---------------------------------------------------------------------------
 
 
-def _unique_keys(delta: Batch, nk: int):
-    """Distinct live keys of a consolidated delta, packed to the front by
-    one run-boundary scan, with their live mask — cut to the bucket of
-    the distinct key count, so the rest of the eval scales with the
-    touched keys, not the delta's capacity (one scalar device-to-host
-    read)."""
+def _delta_groups_impl(delta: Batch, nk: int):
+    """Group structure of a consolidated delta in ONE run-boundary scan:
+    ``(unique key cols, unique live mask, row live mask, segment id per
+    row)``, all at the delta's capacity. The same first-of-group mask
+    feeds the unique-key compaction and the fast path's per-row segment
+    ids."""
     keys = delta.keys[:nk]
-    live = (delta.weights != 0) & ~kernels.rows_equal_prev(
-        keys, delta.cap, delta.device)
-    qkeys, w = kernels.compact(keys, live.to(torch.int32), live)
-    qlive = w != 0
+    first = ~kernels.rows_equal_prev(keys, delta.cap, delta.device)
+    anylive = delta.weights != 0
+    live = anylive & first
+    cols, w = kernels.compact(keys, live.to(torch.int32), live)
+    seg = torch.cumsum(live.to(torch.int64), 0) - 1
+    return cols, w != 0, anylive, seg
+
+
+def _unique_keys_impl(delta: Batch, nk: int):
+    """Distinct live keys of a consolidated batch, packed to the front,
+    with their live mask, at the delta's capacity."""
+    cols, qlive, _, _ = _delta_groups_impl(delta, nk)
+    return cols, qlive
+
+
+def _unique_keys(delta: Batch, nk: int):
+    """:func:`_unique_keys_impl` cut to the bucket of the distinct key
+    count, so the rest of the host eval scales with the touched keys, not
+    the delta's capacity (one scalar device-to-host read)."""
+    qkeys, qlive = _unique_keys_impl(delta, nk)
     cap = bucket_cap(max(int(torch.count_nonzero(qlive)), 1))
     if cap < qlive.shape[-1]:
         qkeys = tuple(k[:cap] for k in qkeys)
         qlive = qlive[:cap]
     return qkeys, qlive
+
+
+def _gather_level_impl(qkeys, qlive: torch.Tensor, level: Batch,
+                       out_cap: int, gather=None):
+    """Expand ONE level's rows matching the query keys into ``out_cap``
+    slots: ``(qrow int32, val cols, w, unclamped total)``, sorted by
+    (qrow, vals); dead slots carry qrow == q_cap (the trash segment) and
+    sentinel vals. It is the ladder gather over a one-level ladder:
+    ``gather`` names it (default ``cuda_kernels.gather_ladder``, the CUDA
+    kernel on a CUDA tensor, its plain version on a CPU tensor)."""
+    fn = gather or cuda_kernels.gather_ladder
+    (qrow, vals, w), total = fn(qkeys, qlive, [level], out_cap)
+    return qrow, vals, w, total
 
 
 class GroupGather:
@@ -152,11 +203,12 @@ class GroupGather:
         return part
 
 
-def _reduce_groups(part, agg: Aggregator, q_cap: int, net: bool):
+def _reduce_groups_impl(part, agg: Aggregator, q_cap: int, net: bool,
+                        seg_reduce=None):
     """Reduce a gathered part per query segment. A part from one level
     holds unique rows; one gathered from several levels (``net``) may hold
     insert/retract rows of one (qrow, vals), netted by a consolidation
-    first."""
+    first. ``seg_reduce`` as in :func:`segment_reduce`."""
     qrow, val_cols, w = part
     if net:
         cols, w = kernels.consolidate_cols((qrow, *val_cols), w)
@@ -164,12 +216,13 @@ def _reduce_groups(part, agg: Aggregator, q_cap: int, net: bool):
     # dead rows carry qrow >= q_cap (the q_cap marker, or the int32
     # sentinel after a compaction): all of them go to the trash segment
     seg = torch.clamp(qrow, max=q_cap).to(torch.int32)
-    outs, present = reduce_with_present(agg, val_cols, w, seg, q_cap + 1)
+    outs, present = reduce_with_present(agg, val_cols, w, seg, q_cap + 1,
+                                        seg_reduce)
     return tuple(o[:q_cap] for o in outs), present[:q_cap] > 0
 
 
-def _diff_outputs(qkeys, qlive, new_vals, new_present, old_vals,
-                  old_present):
+def _diff_outputs_impl(qkeys, qlive, new_vals, new_present, old_vals,
+                       old_present):
     """The retract/insert output delta (2*q_cap capacity), consolidated."""
     changed = new_present != old_present
     for nv, ov in zip(new_vals, old_vals):
@@ -213,7 +266,7 @@ class AggregateOp(UnaryOperator):
             new_present = torch.zeros(qlive.shape, dtype=torch.bool,
                                       device=self.device)
         else:
-            new_vals, new_present = _reduce_groups(
+            new_vals, new_present = _reduce_groups_impl(
                 gathered, self.agg, q_cap, net=len(levels) > 1)
 
         old_levels = self.out_spine.batches
@@ -227,12 +280,12 @@ class AggregateOp(UnaryOperator):
         else:
             # previous outputs are one row per key: a max over the
             # net-positive rows recovers the value, presence its weight
-            old_vals, old_present = _reduce_groups(
+            old_vals, old_present = _reduce_groups_impl(
                 old, _TupleMax(len(self.agg.out_dtypes)), q_cap,
                 net=len(old_levels) > 1)
 
-        cols, w = _diff_outputs(qkeys, qlive, new_vals, new_present,
-                                old_vals, old_present)
+        cols, w = _diff_outputs_impl(qkeys, qlive, new_vals, new_present,
+                                     old_vals, old_present)
         # the diff has 2*q_cap capacity but few live rows
         out = Batch(cols[:nk], cols[nk:], w,
                     runs=(int(w.shape[-1]),)).shrink_to_fit()

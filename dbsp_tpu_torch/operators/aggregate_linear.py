@@ -7,7 +7,9 @@ sums alone, with no group re-gather from an input trace. Counterpart of
 Per tick: a segment sum of the (sorted) delta by key, one ladder gather of
 the operator's own accumulator spine (one net row per key, not the input
 history), and an elementwise combine + diff. The segment sums here are
-plain torch (``index_add_``), as they are XLA in the reference.
+plain torch (``index_add_``), as they are XLA in the reference. The
+``*_impl`` steps read no device value on the host; the compiled engine's
+linear node calls them inside a tick.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ class LinearAverage(LinearAggregator):
         return (torch.where(s >= 0, s // c, -((-s) // c)),)
 
 
-def _weigh_deltas(delta: Batch, agg: LinearAggregator, nk: int):
+def _weigh_deltas_impl(delta: Batch, agg: LinearAggregator, nk: int):
     """Per-distinct-key accumulator deltas, aligned with the key order of
     :func:`~dbsp_tpu_torch.operators.aggregate._unique_keys`."""
     cap = delta.cap
@@ -85,8 +87,8 @@ def _weigh_deltas(delta: Batch, agg: LinearAggregator, nk: int):
     return accs, cnt
 
 
-def _net_state(part, q_cap: int):
-    """Per-key state from the accumulator-spine gather: net accumulator
+def _net_state_impl(part, q_cap: int):
+    """Per-key state from the accumulator-state gather: net accumulator
     columns, net count and net row count (plain segment sums; linearity
     means no netting pass is needed)."""
     qrow, vals, w = part
@@ -98,8 +100,8 @@ def _net_state(part, q_cap: int):
     return sums[:-1], sums[-1], rows
 
 
-def _combine_diff(qkeys, qlive, acc_delta, cnt_delta, old_accs, old_cnt,
-                  old_rows, agg: LinearAggregator, nk: int):
+def _combine_diff_impl(qkeys, qlive, acc_delta, cnt_delta, old_accs,
+                       old_cnt, old_rows, agg: LinearAggregator, nk: int):
     """Combine old state and deltas into the output diff and the state
     diff. A group is VISIBLE iff its net count > 0; a STATE row exists iff
     any accumulator component is nonzero (a group retracted below zero
@@ -150,9 +152,9 @@ class LinearAggregateOp(UnaryOperator):
         self.key_dtypes = tuple(key_dtypes)
         self.device = device
         self.out_schema = (self.key_dtypes, tuple(agg.out_dtypes))
-        self.acc_spine = Spine(self.key_dtypes,
-                               (*agg.acc_dtypes, torch.int64),  # + count
-                               device=device)
+        self._state_schema = (self.key_dtypes,
+                              (*agg.acc_dtypes, torch.int64))  # + count
+        self.acc_spine = Spine(*self._state_schema, device=device)
         self._gather = GroupGather()
 
     def eval(self, delta: Batch) -> Batch:
@@ -161,7 +163,7 @@ class LinearAggregateOp(UnaryOperator):
             return Batch.empty(*self.out_schema, device=self.device)
         qkeys, qlive = _unique_keys(delta, nk)
         q_cap = qlive.shape[-1]
-        acc_delta, cnt_delta = _weigh_deltas(delta, self.agg, nk)
+        acc_delta, cnt_delta = _weigh_deltas_impl(delta, self.agg, nk)
         acc_delta = tuple(a[:q_cap] for a in acc_delta)
         cnt_delta = cnt_delta[:q_cap]
 
@@ -172,9 +174,9 @@ class LinearAggregateOp(UnaryOperator):
             old = (tuple(zero.to(d) for d in self.agg.acc_dtypes), zero,
                    zero)
         else:
-            old = _net_state(part, q_cap)
+            old = _net_state_impl(part, q_cap)
 
-        out, state = _combine_diff(qkeys, qlive, acc_delta, cnt_delta,
-                                   *old, self.agg, nk)
+        out, state = _combine_diff_impl(qkeys, qlive, acc_delta, cnt_delta,
+                                        *old, self.agg, nk)
         self.acc_spine.insert(state.shrink_to_fit())
         return out.shrink_to_fit()

@@ -43,11 +43,18 @@ class MapOp(UnaryOperator):
         self.name = name
         self.out_schema = out_schema
 
-    def eval(self, batch: Batch) -> Batch:
+    def eval_raw(self, batch: Batch) -> Batch:
+        """The transformed rows without the consolidation (order unknown):
+        for a compiled consumer that canonicalizes anyway."""
         nk, nv = self.fn(batch.keys, batch.vals)
         nk, nv = _pin_schema(tuple(nk), tuple(nv), self.out_schema, self.name)
-        cols, w = kernels.consolidate_cols((*nk, *nv), batch.weights)
-        return Batch(cols[:len(nk)], cols[len(nk):], w, runs=(batch.cap,))
+        return Batch(nk, nv, batch.weights)
+
+    def eval(self, batch: Batch) -> Batch:
+        raw = self.eval_raw(batch)
+        nk = len(raw.keys)
+        cols, w = kernels.consolidate_cols(raw.cols, raw.weights)
+        return Batch(cols[:nk], cols[nk:], w, runs=(batch.cap,))
 
 
 class FilterOp(UnaryOperator):

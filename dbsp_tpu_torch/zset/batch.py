@@ -156,6 +156,30 @@ class Batch:
             return self
         return consolidate_regime(self)
 
+    def tagged(self, runs: Optional[Tuple[int, ...]]) -> "Batch":
+        """The same columns with other sorted-run metadata; the caller
+        vouches for it."""
+        return Batch(self.keys, self.vals, self.weights, runs)
+
+    def masked(self, cond) -> "Batch":
+        """The batch where ``cond`` holds, dead (sentinel columns, weight
+        0) where it does not, at the same capacity. A Python bool or a 0-d
+        ``cond`` treats every row alike, so the run metadata survives; a
+        per-row ``cond`` leaves the order unknown."""
+        nk = len(self.keys)
+        if isinstance(cond, bool):
+            if cond:
+                return self
+            cols = tuple(kernels.sentinel_fill(c.shape, c.dtype, self.device)
+                         for c in self.cols)
+            return Batch(cols[:nk], cols[nk:],
+                         torch.zeros_like(self.weights), self.runs)
+        cols = tuple(c.masked_fill(~cond, kernels.sentinel_scalar(c.dtype))
+                     for c in self.cols)
+        runs = self.runs if cond.dim() == 0 else None
+        return Batch(cols[:nk], cols[nk:],
+                     self.weights.masked_fill(~cond, 0), runs)
+
     def compacted(self, keep: torch.Tensor) -> "Batch":
         """Rows where ``keep`` holds, packed to the front, same capacity;
         sort order is preserved, so a consolidated input stays one run."""

@@ -9,7 +9,12 @@ PyTorch version — counterpart of ``dbsp_tpu/zset/pallas_kernels.py``.
 * ``segment_reduce`` (``csrc/segment_reduce.cu``) replaces
   ``segment_reduce_pallas`` (:430);
 * ``rank_merge_scatter`` (``csrc/rank_merge.cu``) replaces
-  ``rank_merge_scatter`` (:519).
+  ``rank_merge_scatter`` (:519);
+* ``agg_ladder`` replaces ``agg_ladder_pallas`` (:472), which has no
+  ``pallas_call`` of its own: the compiled aggregate's whole chain with
+  its gathers on ``csrc/ladder_consumer.cu`` and every segment reduction
+  on ``csrc/segment_reduce.cu``, as the Pallas version composes its two
+  kernels.
 
 Dispatch is by the device of the tensors a wrapper is given: on a CPU
 tensor it runs its plain version (``*_plain``, same module), on a CUDA
@@ -21,7 +26,10 @@ shared library per source with a plain C interface, all sources at once,
 into ``dbsp_tpu_torch/_build/<hash of the sources>/``, and loaded with
 ``ctypes``. Columns reach a kernel as int64: the wrappers widen narrower
 integer and bool columns, as the Pallas wrappers do, and narrow the
-results back. Float columns are refused.
+results back. Float columns are refused. A launch's pointers and sizes
+travel in one argument block: by value as a kernel parameter up to
+``ARGS_MAX`` slots, above that as a device table uploaded from pinned
+memory without a sync, so a ladder of any depth launches.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ Cols = Tuple[torch.Tensor, ...]
 # launches per wrapper; a run resets them with reset_launches()
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("lex_probe_ladder", "join_ladder", "gather_ladder", "segment_reduce",
-     "rank_merge"), 0)
+     "rank_merge", "agg_ladder"), 0)
 
 
 def reset_launches() -> None:
@@ -61,7 +69,9 @@ SOURCES = ("probe_ladder.cu", "ladder_consumer.cu", "segment_reduce.cu",
            "rank_merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# slots of the by-value argument block (csrc/common.cuh ARGS_MAX, MAX_COLS)
+# slots of the by-value argument block, above which a launch takes a
+# device table instead; widest searched row (csrc/common.cuh ARGS_MAX,
+# MAX_COLS)
 ARGS_MAX = 448
 MAX_COLS = 16
 
@@ -117,19 +127,22 @@ def build(verbose: bool = False) -> Dict[str, Path]:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # every launcher starts with (host slots, slot count, device table)
+    block = [P, I, P]
     if hasattr(lib, "lex_probe_ladder"):
-        lib.lex_probe_ladder.argtypes = [P, I, I, L, I, P, P]
+        lib.lex_probe_ladder.argtypes = block + [I, I, L, I, P, P]
         lib.lex_probe_ladder.restype = I
     if hasattr(lib, "ladder_consumer"):
         lib.ladder_scratch_elems.argtypes = [I, L]
         lib.ladder_scratch_elems.restype = L
-        lib.ladder_consumer.argtypes = [P, I, I, I, L, L, I, P, P, P, P, P]
+        lib.ladder_consumer.argtypes = block + [I, I, I, L, L, I, P, P, P, P,
+                                                P]
         lib.ladder_consumer.restype = I
     if hasattr(lib, "segment_reduce"):
-        lib.segment_reduce.argtypes = [P, I, I, L, L, I, P, P]
+        lib.segment_reduce.argtypes = block + [I, I, L, L, I, P, P]
         lib.segment_reduce.restype = I
     if hasattr(lib, "rank_merge"):
-        lib.rank_merge.argtypes = [P, I, L, L, P]
+        lib.rank_merge.argtypes = block + [I, L, L, P]
         lib.rank_merge.restype = I
 
 
@@ -158,18 +171,23 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 class _ArgBlock:
-    """The by-value argument block of one launch (``Args`` in
-    csrc/common.cuh). Keeps every int64 column it hands out referenced
-    until the launch is queued."""
+    """The argument block of one launch (``Args`` / ``ArgTable`` in
+    csrc/common.cuh): ``n_slots`` int64 slots of pointers and sizes. Up to
+    ``ARGS_MAX`` slots the kernels take it by value as a kernel parameter;
+    above that :meth:`table` uploads it to the device (pinned host copy,
+    asynchronous, no sync) and the kernels read it there. Keeps every
+    int64 column it hands out referenced until the launch is queued."""
 
     def __init__(self, device: torch.device, n_slots: int, what: str):
-        if n_slots > ARGS_MAX:
-            raise ValueError(f"{what}: {n_slots} argument slots exceed the "
-                             f"kernel's {ARGS_MAX}")
         self.device = device
-        self.slots = (ctypes.c_longlong * ARGS_MAX)()
+        self.n_slots = n_slots
+        self.slots = (ctypes.c_longlong * max(n_slots, 1))()
         self.keep: List[torch.Tensor] = []
         self.what = what
+
+    @property
+    def by_value(self) -> bool:
+        return self.n_slots <= ARGS_MAX
 
     def col(self, slot: int, t: torch.Tensor) -> None:
         """Put column ``t`` (widened to contiguous int64) in ``slot``."""
@@ -188,10 +206,27 @@ class _ArgBlock:
         self.slots[slot] = t.data_ptr()
         return t
 
+    def packed(self) -> torch.Tensor:
+        """The slots as an int64 host tensor (a view of the block)."""
+        return torch.frombuffer(self.slots, dtype=torch.int64)[:self.n_slots]
+
+    def table(self) -> torch.Tensor:
+        """The slots as an int64 tensor on the block's (CUDA) device. The
+        copy goes through pinned memory and does not block; the caching
+        allocators keep both buffers until the copy and the kernels
+        reading the table are done (stream order)."""
+        return self.packed().pin_memory().to(self.device, non_blocking=True)
+
     def launch(self, fn, *argv) -> None:
         with torch.cuda.device(self.device):
+            table = None
+            if not self.by_value:
+                table = self.table()
+                self.keep.append(table)
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = fn(ctypes.addressof(self.slots), *argv, stream)
+            rc = fn(ctypes.addressof(self.slots), self.n_slots,
+                    None if table is None else table.data_ptr(), *argv,
+                    stream)
         if rc != 0:
             raise RuntimeError(f"{self.what}: kernel launch failed with CUDA "
                                f"error {rc}")
@@ -291,17 +326,22 @@ def expand_ladder(lo: torch.Tensor, hi: torch.Tensor, out_cap: int):
 def _select_gather(cols_per_level: Sequence[Cols], level: torch.Tensor,
                    src: torch.Tensor) -> Cols:
     """Gather column values from the level each output slot resolved to:
-    one clamped gather per level per column, combined by level-id select."""
+    one clamped gather per level per column, combined by level-id select.
+    A level of no rows owns no slot, so it is skipped (its slots, if any
+    were dead, keep the zeros every consumer masks)."""
     if not cols_per_level[0]:
         return ()
     src = src.to(torch.int64)
     outs: List[torch.Tensor] = []
     for ci in range(len(cols_per_level[0])):
-        acc = None
+        c0 = cols_per_level[0][ci]
+        acc = torch.zeros(src.shape, dtype=c0.dtype, device=src.device)
         for k, cols in enumerate(cols_per_level):
             c = cols[ci]
+            if c.shape[0] == 0:
+                continue
             v = c[torch.clamp(src, 0, c.shape[0] - 1)]
-            acc = v if acc is None else torch.where(level == k, v, acc)
+            acc = torch.where(level == k, v, acc)
         outs.append(acc)
     return tuple(outs)
 
@@ -594,3 +634,82 @@ def rank_merge_scatter_plain(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,
     w[pos_a] = w_a
     w[pos_b] = w_b.to(w_a.dtype)
     return tuple(out_cols), w
+
+
+# ---------------------------------------------------------------------------
+# Aggregate ladder: the compiled aggregate's chain over the two kernels above
+# ---------------------------------------------------------------------------
+
+
+def _agg_ladder_stitched(delta, nk: int, out_trace, levels: Sequence, agg,
+                         q_cap: int, gather_cap: int, fast: bool, flag,
+                         gather, seg_reduce):
+    """The chain behind :func:`agg_ladder` and :func:`agg_ladder_plain`
+    (reference ``cursor._agg_ladder_stitched``), over the ladder gather
+    ``gather`` and the segment reduction ``seg_reduce`` it is given (the
+    CUDA wrappers or their plain versions). The run-boundary scan is done
+    once: ``_delta_groups_impl`` feeds both the unique-key compaction and
+    the fast path's segment ids."""
+    from dbsp_tpu_torch.operators import aggregate as A
+
+    assert levels, "agg_ladder: trace has no levels"
+    qkeys_full, qlive_full, anylive, seg_full = A._delta_groups_impl(
+        delta, nk)
+    nq = qlive_full.sum()
+    qkeys = tuple(c[:q_cap] for c in qkeys_full)
+    qlive = qlive_full[:q_cap]
+
+    # previous outputs: the out trace holds one live row per present key,
+    # so a q_cap expansion is exact
+    oqrow, ovals, ow, _ = A._gather_level_impl(qkeys, qlive, out_trace,
+                                               q_cap, gather)
+    old_vals, old_present = A._reduce_groups_impl(
+        (oqrow, ovals, ow), A._TupleMax(len(agg.out_dtypes)), q_cap,
+        net=False, seg_reduce=seg_reduce)
+
+    d_vals = d_present = None  # the general path never reads them
+    if fast:
+        seg = torch.where(anylive, seg_full, q_cap).to(torch.int32)
+        d_vals, d_present = A.reduce_with_present(
+            agg, delta.vals, delta.weights, seg, q_cap + 1, seg_reduce)
+        d_vals = tuple(o[:q_cap] for o in d_vals)
+        d_present = d_present[:q_cap] > 0
+    part, gtot = gather(qkeys, qlive & flag, levels, gather_cap)
+    lad_vals, lad_present = A._reduce_groups_impl(
+        part, agg, q_cap, net=len(levels) > 1, seg_reduce=seg_reduce)
+    return (qkeys, qlive, nq, old_vals, old_present, lad_vals, lad_present,
+            d_vals, d_present, gtot.to(torch.int64))
+
+
+def agg_ladder(delta, nk: int, out_trace, levels: Sequence, agg, q_cap: int,
+               gather_cap: int, fast: bool, flag: torch.Tensor):
+    """The compiled general aggregate's whole chain for one delta
+    (:func:`_agg_ladder_stitched`): unique touched keys, previous
+    outputs from the out trace, the touched groups' ladder histories
+    netted and reduced, and on the fast path the delta's own reduction.
+    On CUDA tensors its two gathers (the out trace as a one-level ladder,
+    then the input ladder) are :func:`gather_ladder`
+    (``csrc/ladder_consumer.cu``) and its segment reductions (three on
+    the fast path, two on the general path) are :func:`segment_reduce`
+    (``csrc/segment_reduce.cu``); the run-boundary
+    compaction and the netting stay tensor ops, as they stay ``lax`` in
+    ``agg_ladder_pallas``. Returns the reference's 10-tuple."""
+    if _on_cpu(delta.weights):
+        return agg_ladder_plain(delta, nk, out_trace, levels, agg, q_cap,
+                                gather_cap, fast, flag)
+    _cuda_device(delta.weights, "agg_ladder")
+    out = _agg_ladder_stitched(delta, nk, out_trace, levels, agg, q_cap,
+                               gather_cap, fast, flag, gather_ladder,
+                               segment_reduce)
+    LAUNCHES["agg_ladder"] += 1
+    return out
+
+
+def agg_ladder_plain(delta, nk: int, out_trace, levels: Sequence, agg,
+                     q_cap: int, gather_cap: int, fast: bool,
+                     flag: torch.Tensor):
+    """Plain version of :func:`agg_ladder`: the same chain over
+    :func:`gather_ladder_plain` and :func:`segment_reduce_plain`."""
+    return _agg_ladder_stitched(delta, nk, out_trace, levels, agg, q_cap,
+                                gather_cap, fast, flag, gather_ladder_plain,
+                                segment_reduce_plain)

@@ -8,8 +8,9 @@ CUDA ladder-consumer kernel on a CUDA tensor (``cuda_kernels.join_ladder``;
 its plain version, the stitched probe-ladder / expand / gather chain, sits
 beside it there), then applies the pair function.
 :func:`old_weights_ladder` (incremental distinct) runs the CUDA ladder
-probe twice and sums the found weights in plain torch. The aggregate's
-group gather calls ``cuda_kernels.gather_ladder`` directly.
+probe twice and sums the found weights in plain torch. The host
+aggregate's group gather calls ``cuda_kernels.gather_ladder`` directly,
+and the compiled aggregate calls ``cuda_kernels.agg_ladder``.
 
 Overflow contract (as in the reference): the match total comes back
 UNCLAMPED; when it exceeds ``out_cap`` the tail matches drop off and the
@@ -53,7 +54,6 @@ def join_ladder(delta: Batch, levels: Sequence[Batch], nk: int, fn,
     key_cols = tuple(c[qrow] for c in dk)
     lvals = tuple(c[qrow] for c in delta.vals)
     return _finish_join(fn, key_cols, lvals, rvals, w, valid, total)
-
 
 
 def old_weights_ladder(delta: Batch, levels: Sequence[Batch]

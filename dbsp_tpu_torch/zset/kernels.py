@@ -75,14 +75,17 @@ def rows_equal_prev(cols: Sequence[torch.Tensor], n: int,
                     device=None) -> torch.Tensor:
     """For sorted columns: mask[i] = row i equals row i-1 (mask[0] = False).
     With zero columns every row is the unit row, hence equal; ``device``
-    places that mask (default: the columns' device)."""
+    places that mask (default: the columns' device). Built without a
+    scalar write into a device tensor (a host-to-device copy, a sync on
+    the card)."""
     if not cols:
         return torch.arange(n, device=device) > 0
-    eq = torch.ones((n,), dtype=torch.bool, device=cols[0].device)
-    eq[0] = False
+    dev = cols[0].device
+    rest = torch.ones((max(n - 1, 0),), dtype=torch.bool, device=dev)
     for c in cols:
-        eq[1:] &= _col_eq(c[1:], c[:-1])
-    return eq
+        rest &= _col_eq(c[1:], c[:-1])
+    return torch.cat([torch.zeros((min(n, 1),), dtype=torch.bool,
+                                  device=dev), rest])
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,271 @@
+"""The port's compiled engine (dbsp_tpu_torch/compiled/) against the
+reference's HOST engine on the same events, tick for tick: Nexmark q4 and
+q3 fed by the port's device-side generator, with initial capacities small
+enough that grow + restore + replay happen; a retraction circuit fed
+through ``step(feeds=...)`` that engages the aggregate's slow path; a warm
+start from host-engine state; and a deep ladder whose drains cascade.
+The pattern is tests/test_compiled.py's. Everything runs on the CPU, on
+the kernels' plain versions."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dbsp_tpu.circuit import Runtime
+from dbsp_tpu.nexmark import (GeneratorConfig, NexmarkGenerator, build_inputs,
+                              queries)
+from dbsp_tpu_torch.circuit import Runtime as TRuntime
+from dbsp_tpu_torch.compiled import (CompiledOverflow, cnodes,
+                                     compile_circuit)
+from dbsp_tpu_torch.nexmark import GeneratorConfig as TGeneratorConfig
+from dbsp_tpu_torch.nexmark import NexmarkGenerator as TNexmarkGenerator
+from dbsp_tpu_torch.nexmark import build_inputs as tbuild_inputs
+from dbsp_tpu_torch.nexmark import device_gen as tdevice_gen
+from dbsp_tpu_torch.nexmark import queries as tqueries
+
+CFG = GeneratorConfig(seed=1)
+TCFG = TGeneratorConfig(seed=1)
+EPT = 8           # epochs per tick -> 400 events per tick
+_HOST_RUNS = {}   # reference host-engine outputs, shared by the tests
+
+
+def _ref_build(query):
+    def build(c):
+        streams, handles = build_inputs(c)
+        return handles, getattr(queries, query)(*streams).output()
+    return build
+
+
+def _port_build(query):
+    def build(c):
+        streams, handles = tbuild_inputs(c)
+        return handles, getattr(tqueries, query)(*streams).output()
+    return build
+
+
+def _host_run(query, ticks):
+    """The reference's host engine on the numpy generator's events, one
+    output dict per tick (cached: the longest run serves shorter ones)."""
+    have = _HOST_RUNS.get(query)
+    if have is None or len(have) < ticks:
+        gen = NexmarkGenerator(CFG)
+        handle, (handles, out) = Runtime.init_circuit(1, _ref_build(query))
+        have = []
+        for t in range(ticks):
+            gen.feed(handles, t * EPT * 50, (t + 1) * EPT * 50)
+            handle.step()
+            b = out.take()
+            have.append(b.to_dict() if b is not None else {})
+        _HOST_RUNS[query] = have
+    return have[:ticks]
+
+
+def _gen_fn(handles):
+    hp, ha, hb = handles
+
+    def gen_fn(tick):
+        p, a, b = tdevice_gen.generate_tick(TCFG, tick * EPT, EPT)
+        return {hp: p, ha: a, hb: b}
+    return gen_fn
+
+
+def _compiled_run(query, ticks, validate_every=1, t0=0, handle=None,
+                  trace_levels=cnodes.TRACE_LEVELS):
+    if handle is None:
+        handle = TRuntime.init_circuit(1, _port_build(query), device="cpu")
+    h, (handles, out) = handle
+    ch = compile_circuit(h, gen_fn=_gen_fn(handles),
+                         trace_levels=trace_levels)
+    outs = {}
+
+    def capture(next_tick):
+        b = ch.output(out)
+        outs[next_tick - 1] = b.to_dict() if b is not None else {}
+
+    ch.run_ticks(t0, ticks, validate_every=validate_every,
+                 on_validated=capture)
+    return [outs.get(t, {}) for t in range(t0, t0 + ticks)], ch
+
+
+@pytest.fixture
+def small_caps(monkeypatch):
+    """Seed capacities below a few ticks' state, so the run overflows,
+    grows, restores its snapshot and replays."""
+    monkeypatch.setattr(cnodes, "LEVEL0_CAP", 64)
+    monkeypatch.setattr(cnodes.CTrace, "DEFAULT_CAP", 256)
+
+
+def test_compiled_q4_matches_reference_host(small_caps):
+    """q4 = join + general Max (fast path) + linear Average."""
+    ticks = 4
+    comp, ch = _compiled_run("q4", ticks)
+    host = _host_run("q4", ticks)
+    assert comp == host
+    assert sum(len(t) for t in host) > 10
+    assert ch.overflow_replays > 0, "no grow + restore + replay happened"
+    maxn = next(cn for cn in ch.cnodes
+                if isinstance(cn, cnodes.CAggregate))
+    assert not bool(ch.states[str(maxn.node.index)][1]), \
+        "q4 only inserts: the fast path's gate must stay off"
+    ch.validate()  # no pending overflow
+
+
+def test_compiled_q3_matches_reference_host(monkeypatch):
+    """q3 = filters + index + join; its traces hold a few rows a tick, so
+    level 0 and the tail start at 8 rows to force the replay."""
+    monkeypatch.setattr(cnodes, "LEVEL0_CAP", 8)
+    monkeypatch.setattr(cnodes.CTrace, "DEFAULT_CAP", 8)
+    ticks = 4
+    comp, ch = _compiled_run("q3", ticks)
+    assert comp == _host_run("q3", ticks)
+    assert ch.overflow_replays > 0, "no grow + restore + replay happened"
+    assert ch.deferred_consolidations == 1  # the join's, to the sink
+
+
+def test_compiled_validate_every_two_matches(small_caps):
+    """Validation every 2 ticks: overflows are caught an interval late and
+    the replay re-runs the whole interval from its snapshot."""
+    ticks = 4
+    comp, ch = _compiled_run("q4", ticks, validate_every=2)
+    host = _host_run("q4", ticks)
+    assert comp[1] == host[1] and comp[3] == host[3]
+    assert ch.overflow_replays > 0
+
+
+def test_compiled_warm_start_from_host_state():
+    """Host-engine warm-up, then compile: the spines migrate into the
+    compiled states and the run goes on equal to the reference."""
+    gen = TNexmarkGenerator(TCFG)
+    h, (handles, out) = TRuntime.init_circuit(1, _port_build("q4"),
+                                              device="cpu")
+    for t in range(2):
+        gen.feed(handles, t * EPT * 50, (t + 1) * EPT * 50)
+        h.step()
+        out.take()
+    comp, ch = _compiled_run("q4", 2, t0=2, handle=(h, (handles, out)))
+    host = _host_run("q4", 4)
+    assert comp == host[2:]
+    maxn = next(cn for cn in ch.cnodes if isinstance(cn, cnodes.CAggregate))
+    # a warmed spine has an unknown retraction history: slow path on
+    assert bool(ch.states[str(maxn.node.index)][1])
+
+
+@pytest.mark.parametrize("budget", [None, 40])
+def test_compiled_deep_ladder_matches_reference_host(monkeypatch, budget):
+    """A 4-level ladder from a 16-row level 0 growing 2x: drains cascade
+    through the middle levels (and overflow replays happen) while the
+    outputs stay equal to the reference tick for tick. With a 40-row
+    maintenance budget the deep drains move prefix slices and resume on
+    later calls."""
+    from dbsp_tpu_torch.compiled import compiler
+
+    if budget is not None:
+        monkeypatch.setattr(compiler, "MAINTAIN_BUDGET_ROWS", budget)
+    monkeypatch.setattr(cnodes, "LEVEL0_CAP", 16)
+    monkeypatch.setattr(cnodes, "LEVEL_GROWTH", 2)
+    ticks = 6
+    comp, ch = _compiled_run("q4", ticks, trace_levels=4)
+    assert comp == _host_run("q4", ticks)
+    leveled = [cn for cn in ch.cnodes if isinstance(cn, cnodes._Leveled)]
+    assert leveled and all(len(cn.level_keys) == 4 for cn in leveled)
+
+    def deeper_live(cn):
+        levels, _ = ch.states[str(cn.node.index)]
+        return sum(int(b.live_count()) for b in levels[1:])
+
+    assert any(deeper_live(cn) > 0 for cn in leveled)
+    assert ch.maintain_stats["rows_moved"] > 0
+    assert ch.overflow_replays > 0
+    if budget is not None:
+        assert ch.maintain_stats["partial_drains"] > 0
+
+
+def _retraction_circuit(add_input, ops, i64):
+    """input -> index -> aggregate Max and linear Average."""
+    def build(c):
+        s, h = add_input(c, [i64], [i64])
+        keyed = s.index_by(lambda k, v: (k[0] % 5,), [i64],
+                           val_fn=lambda k, v: (v[0],), val_dtypes=[i64],
+                           name="by5")
+        mx = keyed.aggregate(ops.Max(0), name="mx")
+        avg = keyed.aggregate(ops.Avg(0), name="avg")
+        return h, (mx.output(), avg.output())
+    return build
+
+
+def test_compiled_retractions_take_the_slow_path():
+    """Batches with negative weights through ``step(feeds=...)``: the
+    aggregate's ``ever_negative`` gate flips, the gather re-reads the
+    touched groups' histories, and every tick equals the reference's host
+    engine."""
+    import types
+
+    from dbsp_tpu.operators import add_input_zset
+    from dbsp_tpu.operators.aggregate import Max
+    from dbsp_tpu.operators.aggregate_linear import LinearAverage
+    from dbsp_tpu.zset.batch import Batch
+    from dbsp_tpu_torch.operators import LinearAverage as TLinearAverage
+    from dbsp_tpu_torch.operators import Max as TMax
+    from dbsp_tpu_torch.operators import add_input_zset as tadd_input_zset
+    from dbsp_tpu_torch.zset.batch import Batch as TBatch
+
+    rh, (rin, rout) = Runtime.init_circuit(1, _retraction_circuit(
+        add_input_zset, types.SimpleNamespace(Max=Max, Avg=LinearAverage),
+        jnp.int64))
+    th, (tin, tout) = TRuntime.init_circuit(1, _retraction_circuit(
+        tadd_input_zset, types.SimpleNamespace(Max=TMax, Avg=TLinearAverage),
+        torch.int64), device="cpu")
+    ch = compile_circuit(th)
+    mx = next(cn for cn in ch.cnodes if isinstance(cn, cnodes.CAggregate))
+    rng = np.random.default_rng(12)
+    live = []
+    seen = gates = 0
+    for tick in range(7):
+        rows = [(int(rng.integers(0, 40)), int(rng.integers(-60, 60)), 1)
+                for _ in range(int(rng.integers(4, 14)))]
+        if tick >= 2 and live:  # retract earlier rows from tick 2 on
+            idx = rng.choice(len(live), size=min(5, len(live)),
+                             replace=False)
+            rows += [(*live[i], -1) for i in sorted(idx)]
+            live = [r for i, r in enumerate(live) if i not in set(idx)]
+        live += [(k, v) for k, v, w in rows if w > 0]
+        k = np.array([r[0] for r in rows], np.int64)
+        v = np.array([r[1] for r in rows], np.int64)
+        w = np.array([r[2] for r in rows], np.int64)
+        rin.push_batch(Batch.from_columns([k], [v], w, cap=32))
+        rh.step()
+        feed = TBatch.from_columns([k], [v], w, device="cpu", cap=32)
+        while True:  # the feeds-mode replay: grow, restore, step again
+            snap = ch.snapshot()
+            ch.step(tick, feeds={tin: feed})
+            try:
+                ch.validate()
+                break
+            except CompiledOverflow as e:
+                ch.grow(e)
+                ch.restore(snap)
+        ch.maintain()
+        gates += bool(ch.states[str(mx.node.index)][1])
+        for r, t in zip(rout, tout):
+            want = r.to_dict()
+            b = ch.output(t)
+            assert (b.to_dict() if b is not None else {}) == want, \
+                f"tick {tick}"
+            seen += len(want)
+    assert seen > 20
+    assert gates == 5, "the gate must flip at the first retraction, tick 2"
+    assert "gather" in mx.MONOTONE_CAPS, "the slow path never gathered"
+
+
+def test_unported_operator_raises():
+    from dbsp_tpu_torch.operators import add_input_zset
+
+    def build(c):
+        s, h = add_input_zset(c, [torch.int64], [])
+        return h, s.distinct().output()
+
+    h, _ = TRuntime.init_circuit(1, build, device="cpu")
+    with pytest.raises(NotImplementedError, match="no compiled equivalent"):
+        compile_circuit(h)

@@ -50,6 +50,7 @@ def test_importing_the_port_loads_no_jax():
         "before = set(sys.modules)\n"
         "import dbsp_tpu_torch.nexmark, dbsp_tpu_torch.operators\n"
         "import dbsp_tpu_torch.zset.cuda_kernels, dbsp_tpu_torch.zset.cursor\n"
+        "import dbsp_tpu_torch.compiled, dbsp_tpu_torch.nexmark.device_gen\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -67,6 +68,8 @@ def _meta_batch(cap=8, nvals=1):
 
 
 def test_wrappers_off_the_cpu_launch_or_raise():
+    from dbsp_tpu_torch.operators.aggregate import Max
+
     b = _meta_batch()
     seg = torch.zeros(8, dtype=torch.int32, device="meta")
     before = dict(cuda_kernels.LAUNCHES)
@@ -78,6 +81,9 @@ def test_wrappers_off_the_cpu_launch_or_raise():
             (("max", 0),), b.vals, b.weights, seg, 4, (torch.int64,)),
         lambda: cuda_kernels.rank_merge_scatter(b.cols, b.weights, b.cols,
                                                 b.weights),
+        lambda: cuda_kernels.agg_ladder(
+            b, 1, b, [b], Max(0), 8, 64, True,
+            torch.zeros((), dtype=torch.bool, device="meta")),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):

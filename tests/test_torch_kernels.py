@@ -1,4 +1,4 @@
-"""The port's five kernel entry points (dbsp_tpu_torch/zset/cuda_kernels.py)
+"""The port's six kernel entry points (dbsp_tpu_torch/zset/cuda_kernels.py)
 against the reference's Pallas kernels, exactly.
 
 On the CPU each entry point runs its plain version, so these tests hold
@@ -6,8 +6,8 @@ the plain versions — the functions the CUDA kernels are checked against on
 the card — to the Pallas programs, run through the Pallas interpreter as
 tests/test_pallas_kernels.py runs them. Inputs are the adversarial ladders
 of that file (duplicate keys across levels, an empty level, a
-full-capacity level, heterogeneous caps) and seeded random rows; the data
-are integers, so equality is exact.
+full-capacity level, heterogeneous caps, a level of no rows) and seeded
+random rows; the data are integers, so equality is exact.
 """
 
 import numpy as np
@@ -64,9 +64,19 @@ def _mixed_ladder(rng):
     return out
 
 
+def _cap0(nk=2, nv=1):
+    """A level of no rows (a spine drops empty levels; the compiled
+    engine's ladders and the kernels take them)."""
+    z = jnp.zeros((0,), jnp.int64)
+    return Batch((z,) * nk, (z,) * nv, z, runs=(0,))
+
+
 def _ladders(rng):
     for ladder in _adversarial_ladders(rng):
         yield ladder, 2, _consolidated(rng, 20, 32)
+    # the first ladder again with a cap-0 level in the middle
+    ladder = next(_adversarial_ladders(rng))
+    yield [ladder[0], _cap0(), *ladder[1:]], 2, _consolidated(rng, 20, 32)
     mixed = _mixed_ladder(rng)
     delta = Batch.from_columns(
         [rng.integers(0, 12, 10).astype(np.int64)],
@@ -166,6 +176,51 @@ def test_gather_ladder_plain_equals_pallas(pallas_interpret, out_cap, mode):
     assert max(totals) > 4  # the small out_cap overflows
 
 
+def _cap0_case():
+    """The smallest input of the cap-0 fault: one level of keys
+    [1, 2, 3, 9], plus a level of no rows; delta keys [1, 3, 4]."""
+    lvl = Batch.from_columns([np.array([1, 2, 3, 9], np.int64)],
+                             [np.array([10, 20, 30, 90], np.int64)],
+                             np.array([2, 1, -1, 1], np.int64), cap=4)
+    delta = Batch.from_columns([np.array([1, 3, 4], np.int64)], [],
+                               np.ones(3, np.int64), cap=4)
+    return [lvl, _cap0(nk=1)], delta
+
+
+def test_join_ladder_plain_on_cap0_level(pallas_interpret):
+    ladder, delta = _cap0_case()
+    want = pallas_kernels.join_ladder_pallas(delta.keys, delta.weights,
+                                             ladder, 1, 8)
+    pd = _port(delta)
+    qrow, lvals, w, valid, total = cuda_kernels.join_ladder(
+        pd.keys, pd.weights, [_port(b) for b in ladder], 1, 8)
+    _assert_same(qrow, want[0], "qrow")
+    _assert_same(lvals[0], want[1][0], "vals")
+    _assert_same(w, want[2], "w")
+    _assert_same(valid, want[3], "valid")
+    assert int(total) == int(want[4]) == 2
+    assert qrow[:3].tolist() == [0, 1, 0]
+    assert lvals[0][:3].tolist() == [10, 30, 0]
+    assert w[:3].tolist() == [2, -1, 0]
+
+
+def test_gather_ladder_plain_on_cap0_level(pallas_interpret):
+    ladder, delta = _cap0_case()
+    qlive = jnp.asarray(np.asarray(delta.weights) != 0)
+    (wq, wv, ww), wtotal = pallas_kernels.gather_ladder_pallas(
+        delta.keys, qlive, ladder, 8)
+    pd = _port(delta)
+    (qrow, vals, w), total = cuda_kernels.gather_ladder(
+        pd.keys, _t(qlive), [_port(b) for b in ladder], 8)
+    _assert_same(qrow, wq, "qrow")
+    _assert_same(vals[0], wv[0], "vals")
+    _assert_same(w, ww, "w")
+    assert int(total) == int(wtotal) == 2
+    assert qrow[:3].tolist() == [0, 1, 4]  # dead slots: qrow == q_cap
+    assert vals[0][:2].tolist() == [10, 30]
+    assert w[:3].tolist() == [2, -1, 0]
+
+
 SPEC = (("count", 0), ("sum", 0), ("min", 0), ("max", 1), ("avg", 1),
         ("present", 0))
 
@@ -249,6 +304,8 @@ def test_rank_merge_plain_equals_pallas(pallas_interpret):
 
 def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors no kernel launches: the counts stay where they are."""
+    from dbsp_tpu_torch.operators.aggregate import Max
+
     before = dict(cuda_kernels.LAUNCHES)
     rng = np.random.default_rng(5)
     ladder = [_port(b) for b in _mixed_ladder(rng)]
@@ -260,4 +317,120 @@ def test_cpu_tensors_take_the_plain_versions():
                                 torch.zeros(d.cap, dtype=torch.int32), 1,
                                 (torch.int64,))
     cuda_kernels.rank_merge_scatter(d.cols, d.weights, d.cols, d.weights)
+    cuda_kernels.agg_ladder(d, 1, ladder[0], ladder, Max(0), 8, 64, True,
+                            torch.tensor(True))
     assert cuda_kernels.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# agg_ladder: the compiled aggregate's chain over the gather and the segment
+# reduction, against agg_ladder_pallas (the same chain on the Pallas
+# gather and segment-reduce kernels)
+# ---------------------------------------------------------------------------
+
+
+def _netting_ladder(rng):
+    """Levels whose rows cancel across levels: the second level retracts
+    some rows of the first and re-inserts them with other weights, so the
+    gathered part holds insert/retract rows of one (qrow, vals)."""
+    base = _consolidated(rng, 40, 64, key_range=6, allow_neg=False)
+    n = int(np.count_nonzero(np.asarray(base.weights)))
+    cols = [np.asarray(c)[:n] for c in base.cols]
+    w = np.asarray(base.weights)[:n]
+    sel = rng.random(n) < 0.5
+    back = Batch.from_columns([c[sel] for c in cols[:2]], [cols[2][sel]],
+                              -w[sel], cap=64)
+    again = Batch.from_columns([c[sel][::2] for c in cols[:2]],
+                               [cols[2][sel][::2]],
+                               np.ones(len(w[sel][::2]), np.int64), cap=32)
+    return [base, back, again]
+
+
+def _agg_cases(rng):
+    """(ladder, delta, out_trace): the adversarial ladders, a ladder with
+    multi-level netting and one with a cap-0 level."""
+    ladders = list(_adversarial_ladders(rng))
+    ladders.append(_netting_ladder(rng))
+    ladders.append([ladders[0][0], _cap0(), ladders[0][2]])
+    for ladder in ladders:
+        yield (ladder, _consolidated(rng, 20, 32, key_range=6),
+               _consolidated(rng, 10, 16, key_range=6, allow_neg=False))
+
+
+def _flat(out):
+    """The 10-tuple's tensors in order, None kept (off the fast path)."""
+    flat = []
+    for o in out:
+        if o is None or not isinstance(o, tuple):
+            flat.append(o)
+        else:
+            flat.extend(o)
+    return flat
+
+
+# (mode, q_cap, gather_cap): the fast path (Max) with its gate off and on,
+# the general path, and caps below the queries and the gather totals
+AGG_MODES = [("fast", False, 16, 512), ("fast", True, 16, 512),
+             ("general", True, 16, 512), ("fast", True, 4, 8),
+             ("general", True, 4, 8)]
+
+
+@pytest.mark.parametrize("mode,flag,q_cap,gather_cap", AGG_MODES)
+def test_agg_ladder_plain_equals_pallas(pallas_interpret, mode, flag, q_cap,
+                                        gather_cap):
+    from dbsp_tpu.operators.aggregate import Max
+    from dbsp_tpu_torch.operators.aggregate import Max as TMax
+
+    fast = mode == "fast"
+    rng = np.random.default_rng(60)
+    cases = 0
+    overflow = 0
+    for ladder, delta, out_trace in _agg_cases(rng):
+        want = pallas_kernels.agg_ladder_pallas(
+            delta, 2, out_trace, ladder, Max(0), q_cap, gather_cap, fast,
+            jnp.asarray(flag))
+        got = cuda_kernels.agg_ladder(
+            _port(delta), 2, _port(out_trace), [_port(b) for b in ladder],
+            TMax(0), q_cap, gather_cap, fast, torch.tensor(flag))
+        g, w = _flat(got), _flat(want)
+        assert len(g) == len(w) == 11
+        for i, (a, b) in enumerate(zip(g, w)):
+            if b is None:
+                assert a is None, f"case {cases} leaf {i}"
+            else:
+                _assert_same(a, b, f"case {cases} leaf {i}")
+        # nq and the gather total are the unclamped requirements
+        overflow += int(got[2]) > q_cap or int(got[9]) > gather_cap
+        cases += 1
+    assert cases == 5
+    if q_cap == 4:
+        assert overflow, "the small caps must overflow for the check to bite"
+
+
+def test_agg_ladder_fast_gate_masks_the_gather():
+    """Fast path, gate off: no query reaches the ladder gather (total 0);
+    gate on: the touched groups' rows come back."""
+    from dbsp_tpu_torch.operators.aggregate import Max as TMax
+
+    rng = np.random.default_rng(61)
+    ladder, delta, out_trace = next(_agg_cases(rng))
+    args = (_port(delta), 2, _port(out_trace), [_port(b) for b in ladder],
+            TMax(0), 16, 512, True)
+    assert int(cuda_kernels.agg_ladder(*args, torch.tensor(False))[9]) == 0
+    assert int(cuda_kernels.agg_ladder(*args, torch.tensor(True))[9]) > 0
+
+
+def test_argument_block_takes_any_ladder_depth():
+    """Above the by-value block's 448 slots a launch's argument block goes
+    to the kernel as a device table (on the card, an asynchronous upload
+    from pinned memory of the packed block, which is checked here)."""
+    blk = cuda_kernels._ArgBlock(torch.device("cpu"), 3000, "test")
+    assert not blk.by_value
+    for i in range(3000):
+        blk.slots[i] = 7 * i - 5
+    table = blk.packed()
+    assert table.dtype == torch.int64 and table.shape == (3000,)
+    assert table.tolist() == [7 * i - 5 for i in range(3000)]
+    small = cuda_kernels._ArgBlock(torch.device("cpu"),
+                                   cuda_kernels.ARGS_MAX, "test")
+    assert small.by_value
