@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (dbsp_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]...
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
@@ -15,15 +15,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
              wider than the by-value argument block, empty /
              retraction-only / out-of-range segments, the aggregate
              chain's fast path with its gate off and on, its general
-             path and netting ladders) and on inputs of the queries'
-             sizes (ladders up to 2M rows, 100k-row deltas);
+             path and netting ladders; the lex probe one side at a time
+             and both in one launch, on levels of 0, 1 and 127-129 rows
+             and larger, with runs of equal rows and narrow columns; the
+             rank merge at 0, 1, T-1, T, T+1 and 3T+7 rows for its tile
+             T, with equal runs longer than a tile, all rows equal, 1, 5
+             and 16 columns and narrow columns) and on inputs of the queries' sizes (ladders
+             up to 2M rows, 100k-row deltas);
 4. queries — Nexmark q4, q3, q8 and q15, one after the other, each on the
              host runtime on the card at 100,000 events per tick: 4 warm
              ticks then 20 measured (2,000,000 events, a cut of Nexmark's
              usual 100M made for the run's time limit), with the launch
              counts set to 0 just before each query's run and read just
              after it (and per measured tick), the kernels its path must
-             launch checked, and the accumulated output held against a
+             launch checked (distinct's lookup: one lex-probe launch per
+             measured tick), and the accumulated output held against a
              numpy oracle of the query over all events;
 4b. compiled — Nexmark q4 and q3 on the compiled engine, events generated
              on the card (device_gen), 100,000 events per tick, the
@@ -36,7 +42,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
              the same events, and the integrated output equals the numpy
              oracle. Host syncs inside the measured ticks are counted with
              torch.cuda.set_sync_debug_mode("warn") (its one-time
-             prototype notice is listed apart);
+             prototype notice is listed apart), and the device ms per
+             profiled tick of each of the port's kernels;
 5. cross   — for each query, the first 3 ticks of 10,000 events through
              the port on the CPU (plain versions) and on the card: equal
              rows per tick;
@@ -44,7 +51,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
              PyTorch library call, on the largest inputs the queries gave
              it: ``ms`` per call by CUDA events (host gaps between
              launches included), ``device_ms`` the kernel's device time
-             alone by torch.profiler.
+             alone by torch.profiler;
+7. turns   — only with ``--parent DIR`` (another tree of the repo, such as
+             the parent commit unpacked with ``git archive``; repeat the
+             option for more trees): every kernel entry point's largest
+             main-path call whose arguments are plain tensors and values
+             (the lex probe, segment reduce and rank merge), saved and
+             timed in each tree that has that entry point, in turns (the
+             other trees, this, this, the others in reverse), each turn a
+             process of its own, after one timing in this process; the
+             outputs are checked equal across the turns.
 
 Output: the phase summaries, then one line {"kernels": [...]}, then the
 nvidia-smi line, then the last line
@@ -53,8 +69,10 @@ nvidia-smi line, then the last line
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -252,17 +270,117 @@ def seg_out_dtypes(spec, vals, w):
     return tuple(_seg_out_dtype(op, c, vals, w) for op, c in spec)
 
 
+def check_probe_sides(ck: Checker, what: str, tables, queries):
+    """The two-sided probe (one launch) and each one-sided probe against
+    their plain versions. Returns the two-sided ``(lo, hi)``."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    for side in ("left", "right"):
+        ck.check("lex_probe_ladder", f"{what} side {side}",
+                 ck_mod.lex_probe_ladder, ck_mod.lex_probe_ladder_plain,
+                 tables, queries, side)
+    return ck.check("lex_probe_ladder", f"{what} both sides",
+                    ck_mod.lex_probe_ladder_both,
+                    ck_mod.lex_probe_ladder_both_plain, tables, queries)
+
+
+def sorted_rows(rng, n, spec, dev, extra=None):
+    """``n`` rows sorted lexicographically on the card, column i drawn
+    from [lo, hi) as ``spec[i] = (lo, hi, numpy dtype)`` (narrow ranges
+    give runs of equal rows), plus ``extra`` copies of the row of each
+    column's ``lo``."""
+    import torch
+
+    cols = [rng.integers(lo, hi, n).astype(dt) for lo, hi, dt in spec]
+    if extra:
+        cols = [np.concatenate([c, np.full(extra, lo, dt)])
+                for c, (lo, _, dt) in zip(cols, spec)]
+    order = np.lexsort(cols[::-1])
+    return tuple(torch.from_numpy(c[order]).to(dev) for c in cols)
+
+
+def check_probe_runs(ck: Checker, rng, dev) -> None:
+    """The probe on levels of 127, 128 and 129 rows, much larger, of one
+    row and of none; runs of equal rows (hi - lo > 1), sentinel queries,
+    1, 2, 3 and 16 columns, columns of every narrower integer type and
+    bool."""
+    import torch
+
+    i64max = torch.iinfo(torch.int64).max
+    for ncols in (1, 2, 3, 16):
+        # two varying columns at most, the rest constant: equal rows
+        spec = [(0, 40 if ncols == 1 else 6, np.int64)] * min(ncols, 2) + \
+            [(3, 4, np.int64)] * (ncols - 2)
+        qspec = [(-1, 41 if ncols == 1 else 7, np.int64)] * min(ncols, 2) + \
+            [(3, 4, np.int64)] * (ncols - 2)
+        q = sorted_rows(rng, 700, qspec, dev)
+        q = tuple(torch.cat([c, torch.full((9,), i64max, device=dev)])
+                  for c in q)
+        for caps in ((127, 128, 129, 1, 0), (37 * 128 + 5, 7)):
+            tables = [sorted_rows(rng, c, spec, dev) for c in caps]
+            lo, hi = check_probe_sides(ck, f"{ncols} columns, levels "
+                                       f"{caps}", tables, q)
+            if int((hi - lo).max()) <= 1:
+                fail(f"lex_probe_ladder [{ncols} columns {caps}]: no run "
+                     "of equal rows was probed")
+    narrow = ((0, 5, np.int32), (0, 2, np.bool_), (-3, 3, np.int8),
+              (-3, 3, np.int16), (0, 3, np.uint8))
+    tables = [sorted_rows(rng, n, narrow, dev) for n in (5000, 300, 12)]
+    q = sorted_rows(rng, 900, ((-1, 6, np.int64), (0, 2, np.bool_),
+                               (-4, 4, np.int32), (-3, 3, np.int64),
+                               (0, 4, np.uint8)), dev)
+    check_probe_sides(ck, "int32, bool, int8, int16 and uint8 columns",
+                      tables, q)
+
+
+def check_merge_tiles(ck: Checker, rng, dev) -> None:
+    """The rank merge around its tile T: merges of 0, 1, T-1, T, T+1 and
+    3T+7 rows split three ways between the sides; a run of equal rows
+    longer than a tile on both sides; all rows equal; 1, 5 (q4's bids
+    rows) and 16 columns; int32, bool, int8, int16 and uint8 columns with
+    int32 weights."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    def merge(what, na, nb, spec, extra=(0, 0), wdt=np.int64):
+        a = sorted_rows(rng, na, spec, dev, extra[0])
+        b = sorted_rows(rng, nb, spec, dev, extra[1])
+        wa = torch.from_numpy(rng.integers(-3, 4, len(a[0])).astype(wdt))
+        wb = torch.from_numpy(rng.integers(-3, 4, len(b[0])).astype(wdt))
+        ck.check("rank_merge", what, ck_mod.rank_merge_scatter,
+                 ck_mod.rank_merge_scatter_plain, a, wa.to(dev), b,
+                 wb.to(dev))
+
+    bids = ((0, 300, np.int64), (0, 1 << 40, np.int64),
+            (1, 10_000, np.int64), (0, 16, np.int32), (0, 1 << 41, np.int64))
+    for spec in (((0, 50, np.int64),), bids, ((0, 3, np.int64),) * 16):
+        ncols = len(spec)
+        T = ck_mod.rank_merge_tile(ncols)
+        for n in (0, 1, T - 1, T, T + 1, 3 * T + 7):
+            for na in sorted({0, n // 3, n}):
+                merge(f"{ncols} columns, tile {T}, {na} + {n - na} rows",
+                      na, n - na, spec)
+        merge(f"{ncols} columns, tile {T}: an equal run of {2 * T + 3} + "
+              f"{T + 9} rows", 3 * T, T + 40, spec, extra=(2 * T + 3, T + 9))
+        same = tuple((lo, lo + 1, dt) for lo, _, dt in spec)
+        merge(f"{ncols} columns, tile {T}: all rows equal", 2 * T + 5,
+              3 * T + 1, same)
+    narrow = ((0, 5, np.int32), (0, 2, np.bool_), (-9, 9, np.int8),
+              (-9, 9, np.int16), (0, 9, np.uint8))
+    merge("int32, bool, int8, int16 and uint8 columns, int32 weights", 5000,
+          7000, narrow, wdt=np.int32)
+
+
 def check_lex_probe(ck: Checker, rng, dev) -> None:
-    """lex_probe_ladder against its plain version, both sides."""
+    """lex_probe_ladder against its plain version, both sides, one at a
+    time and in one launch."""
     import torch
 
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     def both_sides(what, tables, queries):
-        for side in ("left", "right"):
-            ck.check("lex_probe_ladder", f"{what} side {side}",
-                     ck_mod.lex_probe_ladder, ck_mod.lex_probe_ladder_plain,
-                     tables, queries, side)
+        check_probe_sides(ck, what, tables, queries)
 
     i64max = torch.iinfo(torch.int64).max
     sentinel = tuple(torch.full((8,), i64max, device=dev) for _ in range(2))
@@ -353,17 +471,14 @@ def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
                      ck_mod.gather_ladder_plain, delta.keys,
                      delta.weights != 0, ladder, out_cap)
     # wide ladders: 200 levels of two-column rows for the probe
-    # (3 * 200 + 2 = 602 slots), 100 levels of bids rows for the join and
-    # the gather ((1 + 4 + 2) * 100 + 7 = 707 slots)
+    # (3 * 200 + 2 + 4 = 606 slots), 100 levels of bids rows for the join
+    # and the gather ((1 + 4 + 2) * 100 + 7 = 707 slots)
     two = ((0, 50, np.int64),) * 2
     probe_ladder = [consolidated(rng, 12, 16, dev, spec=two, nv=0)
                     for _ in range(200)]
     q = consolidated(rng, 300, 512, dev, spec=two, nv=0)
-    for side in ("left", "right"):
-        ck.check("lex_probe_ladder", f"200 levels ({3 * 200 + 2} slots) "
-                 f"side {side}", ck_mod.lex_probe_ladder,
-                 ck_mod.lex_probe_ladder_plain,
-                 [lvl.cols for lvl in probe_ladder], q.cols, side)
+    check_probe_sides(ck, "200 levels (606 slots)",
+                      [lvl.cols for lvl in probe_ladder], q.cols)
     bids = bids_row(40)
     wide = [consolidated(rng, 20, 32, dev, nk=1, spec=bids)
             for _ in range(100)]
@@ -375,8 +490,8 @@ def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
         ck.check("gather_ladder", f"100 levels (707 slots) {out_cap}",
                  ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
                  delta.keys, delta.weights != 0, wide, out_cap)
-    if ck_mod._ArgBlock(dev, 707, "check").by_value:
-        fail("a 707-slot launch did not take the device table")
+    if ck_mod._ArgBlock(dev, 606, "check").by_value:
+        fail("a 606-slot launch did not take the device table")
 
 
 def agg_kernel_checked(*args):
@@ -490,6 +605,7 @@ def check_kernels(ck: Checker, dev) -> None:
              ck_mod.join_ladder_plain, delta.keys, delta.weights, ladder, 2,
              1 << 14)
     check_lex_probe(ck, rng, dev)
+    check_probe_runs(ck, rng, dev)
     check_cap0_and_wide(ck, rng, dev)
     check_agg_ladder(ck, rng, dev)
     # -- q4-sized ladder: bids-schema levels up to 2M rows, 100k delta
@@ -537,6 +653,7 @@ def check_kernels(ck: Checker, dev) -> None:
         ck.check("rank_merge", f"pair {i} ({a.cap} + {b.cap})",
                  ck_mod.rank_merge_scatter, ck_mod.rank_merge_scatter_plain,
                  a.cols, a.weights, b.cols, b.weights)
+    check_merge_tiles(ck, rng, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -679,7 +796,7 @@ def recorders():
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     return [
-        Recorder(ck_mod, "lex_probe_ladder", _probe_size),
+        Recorder(ck_mod, "lex_probe_ladder_both", _probe_size),
         Recorder(ck_mod, "join_ladder", _ladder_size),
         Recorder(ck_mod, "gather_ladder", _ladder_size),
         Recorder(ck_mod, "segment_reduce",
@@ -738,6 +855,11 @@ def run_query(name: str, all_events: dict):
     for k in QUERIES[name]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {name} path")
+    if "lex_probe_ladder" in QUERIES[name] and \
+            set(per_tick["lex_probe_ladder"]) != {1}:
+        fail(f"{name}: distinct's old-weights lookup made "
+             f"{per_tick['lex_probe_ladder']} probe launches per measured "
+             "tick, not one (both sides in one launch)")
     if n not in all_events:
         all_events.clear()
         all_events[n] = gen.generate(0, n)
@@ -780,6 +902,19 @@ def run_query(name: str, all_events: dict):
 # ---------------------------------------------------------------------------
 # The compiled engine
 # ---------------------------------------------------------------------------
+
+
+def port_kernel_ms(dev_kernels: dict) -> dict:
+    """Device ms per profiled tick of each of the port's kernels (its
+    template instances summed), from {event name: [ms, launches]}."""
+    from dbsp_tpu_torch.profile_query import port_kernel
+
+    out: dict = {}
+    for event, (ms, _) in dev_kernels.items():
+        k = port_kernel(event)
+        if k is not None:
+            out[k] = out.get(k, 0.0) + ms / C_PROFILE
+    return out
 
 
 def state_bytes(tree) -> int:
@@ -981,6 +1116,7 @@ def run_compiled(name: str) -> dict:
         "device_ops_per_tick": sum(v[1] for v in dev_kernels.values())
         / C_PROFILE,
         "device_top_ms_per_tick": {k: v[0] / C_PROFILE for k, v in top},
+        "port_kernels_ms_per_tick": port_kernel_ms(dev_kernels),
         "dispatch_ms_per_measured_tick": sum(dispatch_ns) / 1e6
         / max(len(dispatch_ns), 1),
         "host_syncs_per_measured_tick": sum(syncs) / max(len(syncs), 1),
@@ -1110,18 +1246,33 @@ def ladder_bound(args, kw, join: bool):
 
 
 def probe_bound(args):
-    """Least bytes and operations of one ladder probe (one side): the
-    queries read once; per (level, query) one search of ceil(log2(cap +
-    1)) probes of every column, but no more bytes than the level holds;
-    the [K, m] int32 output written once."""
+    """Least bytes and operations of one two-sided ladder probe on these
+    inputs: the queries read once; per (level, query) the left side's
+    search of ceil(log2(cap + 1)) rows, then the rows the right side must
+    compare from the left answer L on: row L where L < cap, and where rows
+    equal the query (right > L) the row after their run where right < cap
+    and ceil(log2(run)) rows to find its end; each row read is a compare
+    of every column, and no more bytes are read than the level holds;
+    both [K, m] int32 outputs written once."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
     tables, qcols = args[:2]
-    m = qcols[0].shape[0]
-    nbytes = sum(_nbytes(q) for q in qcols) + 4 * len(tables) * m
+    lo, hi = ck_mod.lex_probe_ladder_both(tables, qcols)
+    m, ncols = qcols[0].shape[0], len(qcols)
+    nbytes = sum(_nbytes(q) for q in qcols) + 2 * 4 * len(tables) * m
     ops = 0
-    for t in tables:
-        probes = m * _steps(t[0].shape[0]) * len(qcols)
-        nbytes += min(probes * 8, sum(_nbytes(c) for c in t))
-        ops += probes
+    for k, t in enumerate(tables):
+        cap = t[0].shape[0]
+        left, right = lo[k].to(torch.int64), hi[k].to(torch.int64)
+        run = right - left
+        rows = m * int(cap).bit_length() + int(
+            (left < cap).sum() + ((run > 0) & (right < cap)).sum()
+            + torch.log2(run.clamp(min=1).double()).ceil().sum())
+        nbytes += min(rows * sum(c.element_size() for c in t),
+                      sum(_nbytes(c) for c in t))
+        ops += rows * ncols
     return nbytes, ops
 
 
@@ -1156,12 +1307,13 @@ def seg_bound(args):
 
 
 def rank_bound(args):
+    """Least bytes and operations of one rank merge: every row read once
+    and written once at its columns' widths; one lexicographic compare
+    (one int64 compare per column) per output row, as a merge makes."""
     cols_a, w_a, cols_b, w_b = args
     n = w_a.shape[0] + w_b.shape[0]
     row = sum(c.element_size() for c in cols_a) + w_a.element_size()
-    ops = (w_a.shape[0] * _steps(w_b.shape[0])
-           + w_b.shape[0] * _steps(w_a.shape[0])) * len(cols_a)
-    return 2 * n * row, ops
+    return 2 * n * row, n * len(cols_a)
 
 
 def agg_bound(args, out):
@@ -1216,6 +1368,9 @@ def kernel_table(captured, runs, ck: Checker):
         if name == "rank_merge":
             kern, plain = ck_mod.rank_merge_scatter, \
                 ck_mod.rank_merge_scatter_plain
+        elif name == "lex_probe_ladder":  # distinct's two-sided lookup
+            kern, plain = ck_mod.lex_probe_ladder_both, \
+                ck_mod.lex_probe_ladder_both_plain
         elif name == "agg_ladder":
             kern, plain = agg_kernel_checked, ck_mod.agg_ladder_plain
             # the same call with the gate on: the gather returns rows
@@ -1246,10 +1401,12 @@ def kernel_table(captured, runs, ck: Checker):
             extra["shape"] = {"levels": [t[0].shape[0] for t in tables],
                               "queries": qcols[0].shape[0],
                               "columns": len(qcols)}
+            extra["entry"] = "lex_probe_ladder_both (both sides, one launch)"
             extra["library_note"] = (
                 "batched torch.searchsorted over the sentinel-padded "
                 "[K, maxcap] stack of the first column + clamp to each "
-                "level's cap: the same function for one key column only")
+                "level's cap, side left: one side of the same function, "
+                "for one key column only")
         elif name == "join_ladder":
             nbytes, ops = ladder_bound(args, kw, join=True)
             extra["library_note"] = LADDER_NO_LIBRARY
@@ -1282,6 +1439,9 @@ def kernel_table(captured, runs, ck: Checker):
                 0, idx, v, reduce=red, include_self=True))
         else:
             nbytes, ops = rank_bound(args)
+            extra["tile"] = ck_mod.rank_merge_tile(len(args[0]))
+            extra["shape"] = {"a": args[1].shape[0], "b": args[3].shape[0],
+                              "columns": len(args[0])}
             # yardstick: one stable sort of the two runs' FIRST column
             # concatenated, which orders one-column rows the same way
             both = torch.cat([args[0][0], args[2][0]])
@@ -1313,15 +1473,134 @@ def kernel_table(captured, runs, ck: Checker):
 
 
 # ---------------------------------------------------------------------------
+# Turns: the redesigned kernels of another tree against this one's
+# ---------------------------------------------------------------------------
+
+
+def _to(x, dev):
+    """A (nested) tuple, list or dict of tensors and plain values, with
+    every tensor on ``dev`` and every list a tuple."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return tuple(_to(t, dev) for t in x)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x
+
+
+def _plain_data(x) -> bool:
+    """``x`` holds only tensors, numbers, strings, dtypes and None, in
+    tuples, lists and dicts: another tree of the package can load it."""
+    import torch
+
+    if isinstance(x, (tuple, list)):
+        return all(_plain_data(t) for t in x)
+    if isinstance(x, dict):
+        return all(_plain_data(v) for v in x.values())
+    return x is None or isinstance(x, (torch.Tensor, torch.dtype, int,
+                                       float, str, bool))
+
+
+def time_calls(ck_mod, calls: dict, label: str) -> dict:
+    """Time each saved call ``{entry point: (args, kw)}`` whose entry
+    point ``ck_mod`` has: launches per call, a checksum of its outputs,
+    ``ms`` and ``device_ms`` as in the kernel table."""
+    import torch
+
+    dev = torch.device("cuda")
+    out = {"tree": label}
+    for name, (args, kw) in calls.items():
+        fn = getattr(ck_mod, name, None)
+        if fn is None:
+            continue
+        args, kw = _to(args, dev), _to(kw, dev)
+        ck_mod.reset_launches()
+        got = flat_outputs(fn(*args, **kw))
+        torch.cuda.synchronize()
+        out[name] = {
+            "launches_per_call": sum(ck_mod.LAUNCHES.values()),
+            "checksum": [int((t.to(torch.int64) * torch.arange(
+                1, t.numel() + 1, device=dev).reshape(t.shape)).sum())
+                for t in got],
+            "ms": time_ms(lambda: fn(*args, **kw)),
+            "device_ms": device_ms(lambda: fn(*args, **kw))}
+    return out
+
+
+def time_saved(tree: str, path: str) -> None:
+    """One turn: import the package of ``tree``, time the calls saved in
+    ``path`` (:func:`time_calls`), print one JSON line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    if not os.path.abspath(ck_mod.__file__).startswith(tree + os.sep):
+        fail(f"imported {ck_mod.__file__}, not the package in {tree}")
+    print(json.dumps(time_calls(ck_mod, torch.load(path), tree)),
+          flush=True)
+
+
+def time_in_turns(calls: dict, others: list) -> list:
+    """The kernels' largest main-path calls ``{entry point: (args, kw)}``
+    that can be saved (:func:`_plain_data`), timed in every tree of
+    ``others`` and in this one, in turns (the others, this, this, the
+    others in reverse), each turn a process of its own; first, the same
+    saved calls in this process. A tree times the entry points it has.
+    Fails unless the outputs of an entry point are equal in every turn
+    that timed it."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = {name: _to(call, "cpu") for name, call in calls.items()
+             if _plain_data(call)}
+    path = os.path.join(os.path.abspath(others[0]), "timed_inputs.pt")
+    torch.save(saved, path)
+    turns = [time_calls(ck_mod, torch.load(path), "this, in this process")]
+    try:
+        for tree in (*others, here, here, *others[::-1]):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--time-saved", tree, path],
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                fail(f"timing turn in {tree} failed:\n{r.stderr[-3000:]}")
+            turns.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    finally:
+        os.remove(path)
+    for name in saved:
+        sums = {json.dumps(t[name]["checksum"]) for t in turns if name in t}
+        if len(sums) > 1:
+            fail(f"{name}: the trees' outputs differ on the same inputs")
+    return turns
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR", action="append",
+                    help="also time the kernels' largest calls in the tree "
+                         "in DIR against this tree's, in turns (repeat for "
+                         "more trees)")
+    ap.add_argument("--time-saved", nargs=2, metavar=("TREE", "FILE"),
+                    help=argparse.SUPPRESS)  # one turn, run by --parent
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script needs an NVIDIA GPU")
+    if opts.time_saved:
+        time_saved(*opts.time_saved)
+        return 0
     try:
         from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
     except ImportError as e:
@@ -1369,7 +1648,10 @@ def main() -> int:
         for name in COMPILED:
             runs[f"{name}-compiled"] = run_compiled(name)
     captured = {r.name: r.best for r in recs}
+    calls = {name: (args, kw) for name, (_, args, kw, _) in
+             captured.items() if args is not None}
     captured["rank_merge"] = captured.pop("rank_merge_scatter")
+    captured["lex_probe_ladder"] = captured.pop("lex_probe_ladder_both")
 
     # 5. cross-check CPU vs card
     for name in QUERIES:
@@ -1379,6 +1661,9 @@ def main() -> int:
 
     # 6. kernel table at the shapes the queries gave each kernel
     table = kernel_table(captured, runs, ck)
+    if opts.parent:
+        # 7. the other trees' kernels against this tree's, in turns
+        say(json.dumps({"turns": time_in_turns(calls, opts.parent)}))
     say(json.dumps({"kernels": table}))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,13 @@
 // block every launch takes, and the lexicographic binary search that
 // replaces the Pallas `_lex_search` (dbsp_tpu/zset/pallas_kernels.py:102).
 //
-// Every column reaches a kernel as an int64 device pointer; the Python
-// wrapper widens narrower integer and bool columns first, as the Pallas
-// wrappers do. Pointers and small integers travel in one argument block
+// A column reaches the ladder consumer and segment reduce as an int64
+// device pointer: their wrappers widen narrower integer and bool columns
+// first, as the Pallas wrappers do. The lex probe and the rank merge read
+// (and the merge writes) each column at its own width instead, with its
+// `ColKind` in the argument block; they widen every value to int64 as
+// they load it, so their compares are the same signed int64 compares.
+// Pointers and small integers travel in one argument block
 // of int64 slots; each wrapper documents its own slot layout. Kernels are
 // templates over where the block lives:
 //   * `Args`: BY VALUE as a kernel parameter, for up to ARGS_MAX slots (no
@@ -53,6 +57,11 @@ __device__ __forceinline__ const i64* in_col(const A& a, int slot) {
 }
 
 template <class A>
+__device__ __forceinline__ const void* col_ptr(const A& a, int slot) {
+  return reinterpret_cast<const void*>(a[slot]);
+}
+
+template <class A>
 __device__ __forceinline__ i64* out_col(const A& a, int slot) {
   return reinterpret_cast<i64*>(a[slot]);
 }
@@ -82,6 +91,92 @@ __device__ i64 lex_search(const A& a, int tab0, int tab_stride, int q0,
     if (go_right) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// Element type of a column read or written at its own width (the
+// wrapper's `_KINDS`). Bool and uint8 load unsigned; a bool store writes
+// v != 0, as a cast to bool does; the others truncate, as an integer
+// cast does.
+enum ColKind {
+  KIND_I64 = 0,
+  KIND_I32 = 1,
+  KIND_I16 = 2,
+  KIND_I8 = 3,
+  KIND_U8 = 4,
+  KIND_BOOL = 5
+};
+
+// int64 first, by one compare: the loads of a search are a dependent chain
+__device__ __forceinline__ i64 load_widened(const void* p, int kind,
+                                            i64 i) {
+  if (kind == KIND_I64) return static_cast<const i64*>(p)[i];
+  switch (kind) {
+    case KIND_I32: return static_cast<const int*>(p)[i];
+    case KIND_I16: return static_cast<const short*>(p)[i];
+    case KIND_I8: return static_cast<const signed char*>(p)[i];
+    default: return static_cast<const unsigned char*>(p)[i];  // U8, BOOL
+  }
+}
+
+__device__ __forceinline__ void store_narrowed(void* p, int kind, i64 i,
+                                               i64 v) {
+  if (kind == KIND_I64) {
+    static_cast<i64*>(p)[i] = v;
+    return;
+  }
+  switch (kind) {
+    case KIND_I32: static_cast<int*>(p)[i] = static_cast<int>(v); break;
+    case KIND_I16: static_cast<short*>(p)[i] = static_cast<short>(v); break;
+    case KIND_I8:
+      static_cast<signed char*>(p)[i] = static_cast<signed char>(v);
+      break;
+    case KIND_U8:
+      static_cast<unsigned char*>(p)[i] = static_cast<unsigned char>(v);
+      break;
+    default: static_cast<unsigned char*>(p)[i] = v != 0;  // BOOL
+  }
+}
+
+// Walks the elements e = c * n + r of an [nc][n] block that one thread of
+// the block visits, e = threadIdx.x, + blockDim.x, ..., keeping (c, r)
+// without a division per element.
+struct BlockWalk {
+  int n, c, r, dc, dr;
+  __device__ __forceinline__ explicit BlockWalk(int n_) : n(n_) {
+    c = threadIdx.x / n;
+    r = threadIdx.x - c * n;
+    dc = blockDim.x / n;
+    dr = blockDim.x - dc * n;
+  }
+  __device__ __forceinline__ void next() {
+    c += dc;
+    r += dr;
+    if (r >= n) {
+      r -= n;
+      ++c;
+    }
+  }
+};
+
+// dst[c * n + r] = value(c, r) for c < nc, r < n, by the whole block:
+// each thread issues BATCH loads before it stores any of them, so it keeps
+// BATCH loads in flight rather than waiting on each in turn.
+template <int BATCH, class F>
+__device__ __forceinline__ void stage_batched(i64* dst, int nc, int n,
+                                              F value) {
+  const int total = nc * n, step = blockDim.x;
+  BlockWalk w(n);
+  for (int base = threadIdx.x; base < total; base += step * BATCH) {
+    i64 v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (base + u * step < total) v[u] = value(w.c, w.r);
+      w.next();
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+      if (base + u * step < total) dst[base + u * step] = v[u];
+  }
 }
 
 // int64 products and sums wrap in the reference (two's complement); signed

@@ -2,60 +2,123 @@
 //
 // Replaces the Pallas kernel `_probe_ladder_kernel` behind
 // `lex_probe_ladder_pallas` (dbsp_tpu/zset/pallas_kernels.py:136-190). For
-// m query rows and K sorted trace levels it writes the [K, m] int32
-// insertion points, side left (rows < query) or right (rows <= query),
-// each search bounded by its own level's cap. Incremental distinct calls
-// it twice, left then right, to find each delta row in every level.
+// m query rows and K sorted trace levels it writes, in one launch, the
+// [K, m] int32 insertion points of side left (rows < query) and side right
+// (rows <= query), each search bounded by its own level's cap. Incremental
+// distinct asks for both, to find each delta row in every level; a caller
+// that wants one side reads one of the two outputs.
 //
 // What bounds it on an H100: each lane is a chain of dependent loads,
 // log2(level cap) deep (about 21 at 2M rows), most of them misses in L2
 // for a deep level; there is no arithmetic to speak of. The byte bound
-// (queries read once, the probed key bytes of each level at most once,
-// the output written once) is far below what the load latency allows.
+// (queries read once, the probed bytes of each level at most once, the
+// outputs written once) is far below what the load latency allows.
 //
-// Design. One thread per (level k, query i), K*m threads in level-major
-// order, each running the shared `lex_search` over level k with `hi`
-// starting at that level's own cap. The TPU version stacks every level
-// into a sentinel-padded [K, maxcap] block per column; here each thread
-// reads only its own level through the pointer in the argument block, so
-// nothing is stacked, padded or copied, and an empty level (cap 0) gives 0
-// for every query. Unlike the ladder consumer's probe pass, no lane is
-// zeroed: every query, sentinel and dead ones included, gets its raw
-// insertion point, as the Pallas kernel gives it; the caller masks dead
-// rows.
+// Design. The grid is (ceil(m / THREADS), K): a block serves THREADS
+// queries of ONE level. Each lane searches its level over [0, cap) for
+// the left side; the rows at the top of that search are the same for
+// every lane, and the L1 serves them. (A stage of every stride-th row in
+// shared memory, bracketing each query before the global search, measured
+// 3% slower on the H100 and was taken out.) The right search starts from
+// the left answer L (right >= left on any sorted table, duplicate rows
+// included): every row from L on is >= the query, so a row there is
+// <= the query iff it equals it. The lane gallops over the run of rows
+// equal to the query from L on and searches only the run's last gap: one
+// load where no row equals the query, two where one does (a consolidated
+// level), and still exact for longer runs. A cap-0 level answers 0. No
+// lane is zeroed: every query, sentinel and dead ones included, gets its
+// raw insertion point, as the Pallas kernel gives it; the caller masks
+// dead rows. Columns are read at their own width (`ColKind`), so the
+// wrapper widens nothing.
 //
 // Argument block (K levels, ncols columns):
 //   [c*K + k]            column c of level k
 //   Q = ncols*K:         [Q + c] query column c
 //   C = Q + ncols:       [C + k] cap of level k (an integer, not a pointer)
+//   D = C + K:           [D + c] ColKind of table column c (every level),
+//                        [D + ncols + c] ColKind of query column c
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+// blocks per SM the register budget must allow: a full SM of lanes, since
+// each lane waits on a chain of dependent loads
+constexpr int MIN_BLOCKS = 2048 / THREADS;
 
+// Insertion point of q into level k, known to lie in [lo, hi].
 template <bool STRICT, class A>
-__global__ void probe_ladder_kernel(A a, int K, int ncols, i64 m,
-                                    int* out) {
-  const i64 t = static_cast<i64>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<i64>(K) * m) return;
-  const int k = static_cast<int>(t / m);
-  const i64 i = t - static_cast<i64>(k) * m;
-  const int q = ncols * K;
-  const i64 cap = a[q + ncols + k];
-  out[t] = static_cast<int>(lex_search<STRICT>(a, k, K, q, ncols, cap, i));
+__device__ i64 level_search(const A& a, int k, int K, int D, int ncols,
+                            const i64* q, i64 lo, i64 hi) {
+  while (lo < hi) {
+    const i64 mid = (lo + hi) >> 1;
+    int cmp = 0;
+    for (int c = 0; c < ncols; ++c) {
+      const i64 t = load_widened(col_ptr(a, c * K + k),
+                                 static_cast<int>(a[D + c]), mid);
+      if (t != q[c]) {
+        cmp = t < q[c] ? -1 : 1;
+        break;
+      }
+    }
+    const bool go_right = STRICT ? (cmp < 0) : (cmp <= 0);
+    if (go_right) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Row `row` of level k equals q.
+template <class A>
+__device__ bool row_equals(const A& a, int k, int K, int D, int ncols,
+                           const i64* q, i64 row) {
+  for (int c = 0; c < ncols; ++c)
+    if (load_widened(col_ptr(a, c * K + k),
+                     static_cast<int>(a[D + c]), row) != q[c])
+      return false;
+  return true;
 }
 
 template <class A>
-void launch(const A& a, int K, int ncols, i64 m, int strict, int* out,
+__launch_bounds__(THREADS, MIN_BLOCKS) __global__
+void probe_ladder_kernel(A a, int K, int ncols, i64 m, int* left,
+                         int* right) {
+  const int k = blockIdx.y;
+  const int Q = ncols * K, C = Q + ncols, D = C + K;
+  const i64 i = static_cast<i64>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= m) return;
+  const i64 cap = a[C + k];
+  const i64 out = static_cast<i64>(k) * m + i;
+  i64 q[MAX_COLS];
+  for (int c = 0; c < ncols; ++c)
+    q[c] = load_widened(col_ptr(a, Q + c),
+                        static_cast<int>(a[D + ncols + c]), i);
+  const i64 found = level_search<true>(a, k, K, D, ncols, q, 0, cap);
+  left[out] = static_cast<int>(found);
+  // gallop over the run of rows equal to q that starts at `found` (none,
+  // or one in a consolidated level), then search its last gap
+  i64 lo = found, hi = found;  // no row equals q: right == left
+  if (found < cap && row_equals(a, k, K, D, ncols, q, found)) {
+    lo = found + 1;
+    hi = cap;
+    for (i64 step = 1; lo < hi; step <<= 1) {
+      const i64 probe = min(lo + step - 1, hi - 1);
+      if (!row_equals(a, k, K, D, ncols, q, probe)) {
+        hi = probe;
+        break;
+      }
+      lo = probe + 1;
+    }
+  }
+  right[out] = static_cast<int>(
+      level_search<false>(a, k, K, D, ncols, q, lo, hi));
+}
+
+template <class A>
+void launch(const A& a, int K, int ncols, i64 m, int* left, int* right,
             cudaStream_t stream) {
-  const i64 n = static_cast<i64>(K) * m;
-  if (strict)
-    probe_ladder_kernel<true><<<blocks_for(n, THREADS), THREADS, 0,
-                                stream>>>(a, K, ncols, m, out);
-  else
-    probe_ladder_kernel<false><<<blocks_for(n, THREADS), THREADS, 0,
-                                 stream>>>(a, K, ncols, m, out);
+  const dim3 grid(blocks_for(m, THREADS), static_cast<unsigned int>(K));
+  probe_ladder_kernel<<<grid, THREADS, 0, stream>>>(a, K, ncols, m, left,
+                                                    right);
 }
 
 }  // namespace
@@ -63,16 +126,21 @@ void launch(const A& a, int K, int ncols, i64 m, int strict, int* out,
 extern "C" {
 
 // `args` holds the `n_args` host slots; `table`, when not null, is their
-// device copy and is what the kernel reads. Returns cudaGetLastError()
-// after the launch (0 on success).
+// device copy and is what the kernel reads. `left` and `right` are the
+// [K, m] outputs of side left and side right. Returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for arguments
+// the kernel does not take.
 int lex_probe_ladder(const i64* args, int n_args, const i64* table, int K,
-                     int ncols, i64 m, int strict, int* out,
+                     int ncols, i64 m, int* left, int* right,
                      cudaStream_t stream) {
-  if (static_cast<i64>(K) * m > 0) {
+  if (!left || !right || K < 1 || K > 65535 || ncols < 1 ||
+      ncols > MAX_COLS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m > 0) {
     if (table)
-      launch(ArgTable{table}, K, ncols, m, strict, out, stream);
+      launch(ArgTable{table}, K, ncols, m, left, right, stream);
     else
-      launch(args_by_value(args, n_args), K, ncols, m, strict, out, stream);
+      launch(args_by_value(args, n_args), K, ncols, m, left, right, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,12 +24,15 @@ the other. Each launch adds one to ``LAUNCHES[name]``.
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
 shared library per source with a plain C interface, all sources at once,
 into ``dbsp_tpu_torch/_build/<hash of the sources>/``, and loaded with
-``ctypes``. Columns reach a kernel as int64: the wrappers widen narrower
-integer and bool columns, as the Pallas wrappers do, and narrow the
-results back. Float columns are refused. A launch's pointers and sizes
-travel in one argument block: by value as a kernel parameter up to
-``ARGS_MAX`` slots, above that as a device table uploaded from pinned
-memory without a sync, so a ladder of any depth launches.
+``ctypes``. The lex probe and the rank merge read (and the merge writes)
+every column at its own width, with its element type in the argument
+block (``_KINDS``). The ladder consumer and segment reduce take int64
+columns: their wrappers widen narrower integer and bool columns, as the
+Pallas wrappers do, and narrow the results back. Float columns are
+refused. A launch's pointers and sizes travel in one argument block: by
+value as a kernel parameter up to ``ARGS_MAX`` slots, above that as a
+device table uploaded from pinned memory without a sync, so a ladder of
+any depth launches.
 """
 
 from __future__ import annotations
@@ -74,6 +77,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # MAX_COLS)
 ARGS_MAX = 448
 MAX_COLS = 16
+# element type of a column read at its own width (ColKind, csrc/common.cuh)
+_KINDS = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
+          torch.uint8: 4, torch.bool: 5}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
@@ -130,7 +136,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # every launcher starts with (host slots, slot count, device table)
     block = [P, I, P]
     if hasattr(lib, "lex_probe_ladder"):
-        lib.lex_probe_ladder.argtypes = block + [I, I, L, I, P, P]
+        lib.lex_probe_ladder.argtypes = block + [I, I, L, P, P, P]
         lib.lex_probe_ladder.restype = I
     if hasattr(lib, "ladder_consumer"):
         lib.ladder_scratch_elems.argtypes = [I, L]
@@ -142,7 +148,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.segment_reduce.argtypes = block + [I, I, L, L, I, P, P]
         lib.segment_reduce.restype = I
     if hasattr(lib, "rank_merge"):
-        lib.rank_merge.argtypes = block + [I, L, L, P]
+        lib.rank_merge.argtypes = block + [I, L, L, I, P]
         lib.rank_merge.restype = I
 
 
@@ -180,6 +186,7 @@ class _ArgBlock:
 
     def __init__(self, device: torch.device, n_slots: int, what: str):
         self.device = device
+        self.index = device.index
         self.n_slots = n_slots
         self.slots = (ctypes.c_longlong * max(n_slots, 1))()
         self.keep: List[torch.Tensor] = []
@@ -201,6 +208,31 @@ class _ArgBlock:
         self.keep.append(t)
         self.slots[slot] = t.data_ptr()
 
+    def col_at_width(self, slot: int, t: torch.Tensor) -> int:
+        """Put column ``t`` in ``slot`` as it is (made contiguous if it is
+        not); returns its ColKind."""
+        kind = _KINDS.get(t.dtype)
+        if kind is None:
+            raise ValueError(f"{self.what}: integer columns of 1, 2, 4 or 8 "
+                             f"bytes and bool columns only, got {t.dtype}")
+        if t.get_device() != self.index:  # -1 off CUDA
+            raise ValueError(f"{self.what}: needs CUDA tensors on "
+                             f"{self.device}, got one on {t.device}")
+        if not t.is_contiguous():
+            t = t.contiguous()
+            self.keep.append(t)
+        self.slots[slot] = t.data_ptr()
+        return kind
+
+    def cols_at_width(self, slot0: int, cols: Sequence[torch.Tensor]) -> int:
+        """Put ``cols``, which share one ColKind, in the slots from
+        ``slot0`` on; returns that ColKind."""
+        kinds = {self.col_at_width(slot0 + i, c) for i, c in enumerate(cols)}
+        if len(kinds) != 1:
+            raise ValueError(f"{self.what}: one column of every level must "
+                             f"share a dtype, got {[c.dtype for c in cols]}")
+        return kinds.pop()
+
     def out(self, slot: int, n: int) -> torch.Tensor:
         t = torch.empty((n,), dtype=torch.int64, device=self.device)
         self.slots[slot] = t.data_ptr()
@@ -218,18 +250,28 @@ class _ArgBlock:
         return self.packed().pin_memory().to(self.device, non_blocking=True)
 
     def launch(self, fn, *argv) -> None:
-        with torch.cuda.device(self.device):
-            table = None
-            if not self.by_value:
-                table = self.table()
-                self.keep.append(table)
-            stream = torch.cuda.current_stream(self.device).cuda_stream
-            rc = fn(ctypes.addressof(self.slots), self.n_slots,
-                    None if table is None else table.data_ptr(), *argv,
-                    stream)
+        """Launch ``fn`` on the current stream of the block's device (made
+        the current device for the launch if it is not)."""
+        if torch.cuda.current_device() != self.index:
+            with torch.cuda.device(self.device):
+                return self.launch(fn, *argv)
+        table = None
+        if not self.by_value:
+            table = self.table()
+            self.keep.append(table)
+        rc = fn(ctypes.addressof(self.slots), self.n_slots,
+                None if table is None else table.data_ptr(), *argv,
+                _current_stream(self.index))
         if rc != 0:
             raise RuntimeError(f"{self.what}: kernel launch failed with CUDA "
                                f"error {rc}")
+
+
+def _current_stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream; without
+    building a ``torch.cuda.Stream`` where torch offers that."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw else torch.cuda.current_stream(index).cuda_stream
 
 
 def _cuda_device(t: torch.Tensor, what: str) -> torch.device:
@@ -245,42 +287,70 @@ def _cuda_device(t: torch.Tensor, what: str) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+def _probe_ladder(tables: Sequence[Cols], query_cols: Cols):
+    """One launch of csrc/probe_ladder.cu: the [K, m] int32 ``(lo, hi)``
+    of side left and side right."""
+    what = "lex_probe_ladder"
+    dev = _cuda_device(query_cols[0], what)
+    K, ncols, m = len(tables), len(query_cols), query_cols[0].shape[0]
+    if K < 1 or not 1 <= ncols <= MAX_COLS:
+        raise ValueError(f"{what}: needs levels and 1..{MAX_COLS} columns "
+                         f"(K={K}, ncols={ncols})")
+    lo, hi = torch.empty((2, K, m), dtype=torch.int32, device=dev)
+    if m == 0:
+        return lo, hi
+    q = ncols * K
+    caps = q + ncols
+    kinds = caps + K
+    args = _ArgBlock(dev, kinds + 2 * ncols, what)
+    for k, t in enumerate(tables):
+        if len(t) != ncols:
+            raise ValueError(f"{what}: level {k} has {len(t)} columns, the "
+                             f"queries {ncols}")
+        args.slots[caps + k] = t[0].shape[0]
+    for c in range(ncols):
+        args.slots[kinds + c] = args.cols_at_width(
+            c * K, [t[c] for t in tables])
+        args.slots[kinds + ncols + c] = args.col_at_width(q + c,
+                                                          query_cols[c])
+    args.launch(load_library("probe_ladder").lex_probe_ladder, K, ncols, m,
+                lo.data_ptr(), hi.data_ptr())
+    LAUNCHES[what] += 1
+    return lo, hi
+
+
 def lex_probe_ladder(tables: Sequence[Cols], query_cols: Cols,
                      side: str = "left") -> torch.Tensor:
     """Insertion points of ``query`` rows into EVERY sorted table: [K, m]
     int32, lane (k, i) == ``lex_probe(tables[k], query_cols, side)[i]``;
     each level's lanes are clamped to its own row count. Every lane gets
     its raw insertion point, sentinel queries included: callers mask dead
-    rows themselves."""
+    rows themselves. On a CUDA tensor it is one side of
+    :func:`lex_probe_ladder_both`'s launch."""
     if _on_cpu(query_cols[0]):
         return lex_probe_ladder_plain(tables, query_cols, side)
-    what = "lex_probe_ladder"
-    dev = _cuda_device(query_cols[0], what)
-    K, ncols, m = len(tables), len(query_cols), query_cols[0].shape[0]
     if side not in ("left", "right"):
-        raise ValueError(f"{what}: side must be 'left' or 'right', got "
-                         f"{side!r}")
-    if K < 1 or not 1 <= ncols <= MAX_COLS:
-        raise ValueError(f"{what}: needs levels and 1..{MAX_COLS} columns "
-                         f"(K={K}, ncols={ncols})")
-    out = torch.empty((K, m), dtype=torch.int32, device=dev)
-    if m == 0:
-        return out
-    caps = ncols * K + ncols
-    args = _ArgBlock(dev, caps + K, what)
-    for k, t in enumerate(tables):
-        if len(t) != ncols:
-            raise ValueError(f"{what}: level {k} has {len(t)} columns, the "
-                             f"queries {ncols}")
-        for c in range(ncols):
-            args.col(c * K + k, t[c])
-        args.slots[caps + k] = t[0].shape[0]
-    for c in range(ncols):
-        args.col(ncols * K + c, query_cols[c])
-    args.launch(load_library("probe_ladder").lex_probe_ladder, K, ncols, m,
-                int(side == "left"), out.data_ptr())
-    LAUNCHES[what] += 1
-    return out
+        raise ValueError(f"lex_probe_ladder: side must be 'left' or "
+                         f"'right', got {side!r}")
+    return _probe_ladder(tables, query_cols)[side == "right"]
+
+
+def lex_probe_ladder_both(tables: Sequence[Cols], query_cols: Cols
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both sides of :func:`lex_probe_ladder` in one launch: ``(lo, hi)``,
+    the [K, m] int32 insertion points of side left and side right. Exact
+    on any sorted tables, duplicate rows included."""
+    if _on_cpu(query_cols[0]):
+        return lex_probe_ladder_both_plain(tables, query_cols)
+    return _probe_ladder(tables, query_cols)
+
+
+def lex_probe_ladder_both_plain(tables: Sequence[Cols], query_cols: Cols
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`lex_probe_ladder_both`: the two plain
+    one-sided probes."""
+    return (lex_probe_ladder_plain(tables, query_cols, "left"),
+            lex_probe_ladder_plain(tables, query_cols, "right"))
 
 
 def lex_probe_ladder_plain(tables: Sequence[Cols], query_cols: Cols,
@@ -588,6 +658,22 @@ def segment_reduce_plain(spec, val_cols: Cols, weights: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# threads of a rank-merge block, and the shared-memory bytes its tile may
+# take (csrc/rank_merge.cu): three blocks fit on one SM's 228 KB
+MERGE_THREADS = 256
+MERGE_STAGE_BYTES = 64 * 1024
+
+
+def rank_merge_tile(ncols: int) -> int:
+    """Output rows per rank-merge block: MERGE_THREADS times the most rows
+    per thread (at most 16) whose staged values (``ncols`` columns and the
+    weights, int64 each, and one int32 source index) fit in
+    ``MERGE_STAGE_BYTES``."""
+    per_row = 8 * (ncols + 1) + 4
+    per = MERGE_STAGE_BYTES // (MERGE_THREADS * per_row)
+    return MERGE_THREADS * max(1, min(16, per))
+
+
 def rank_merge_scatter(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,
                        w_b: torch.Tensor):
     """The rank-merge inner loop: cross-rank both sorted row sets and write
@@ -598,20 +684,23 @@ def rank_merge_scatter(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,
     what = "rank_merge"
     dev = _cuda_device(w_a, what)
     ncols = len(cols_a)
-    if not 1 <= ncols <= MAX_COLS:
-        raise ValueError(f"{what}: needs 1..{MAX_COLS} columns, got {ncols}")
+    if not 1 <= ncols <= MAX_COLS or len(cols_b) != ncols:
+        raise ValueError(f"{what}: needs 1..{MAX_COLS} columns on both "
+                         f"sides, got {ncols} and {len(cols_b)}")
     na, nb = w_a.shape[0], w_b.shape[0]
-    args = _ArgBlock(dev, 3 * ncols + 3, what)
-    for c in range(ncols):
-        args.col(c, cols_a[c])
-        args.col(ncols + 1 + c, cols_b[c])
-    args.col(ncols, w_a)
-    args.col(2 * ncols + 1, w_b)
-    outs = [args.out(2 * ncols + 2 + c, na + nb) for c in range(ncols + 1)]
-    args.launch(load_library("rank_merge").rank_merge, ncols, na, nb)
+    nc = ncols + 1
+    args = _ArgBlock(dev, 5 * nc, what)
+    outs = []
+    for c, (ca, cb) in enumerate(zip((*cols_a, w_a), (*cols_b, w_b))):
+        args.slots[3 * nc + c] = args.col_at_width(c, ca)
+        args.slots[4 * nc + c] = args.col_at_width(nc + c, cb)
+        out = torch.empty((na + nb,), dtype=ca.dtype, device=dev)
+        args.slots[2 * nc + c] = out.data_ptr()
+        outs.append(out)
+    args.launch(load_library("rank_merge").rank_merge, ncols, na, nb,
+                rank_merge_tile(ncols))
     LAUNCHES[what] += 1
-    return (tuple(o.to(c.dtype) for o, c in zip(outs, cols_a)),
-            outs[ncols].to(w_a.dtype))
+    return tuple(outs[:ncols]), outs[ncols]
 
 
 def rank_merge_scatter_plain(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,

@@ -7,10 +7,11 @@ classes. :func:`join_ladder` (the incremental join) runs ONE launch of the
 CUDA ladder-consumer kernel on a CUDA tensor (``cuda_kernels.join_ladder``;
 its plain version, the stitched probe-ladder / expand / gather chain, sits
 beside it there), then applies the pair function.
-:func:`old_weights_ladder` (incremental distinct) runs the CUDA ladder
-probe twice and sums the found weights in plain torch. The host
-aggregate's group gather calls ``cuda_kernels.gather_ladder`` directly,
-and the compiled aggregate calls ``cuda_kernels.agg_ladder``.
+:func:`old_weights_ladder` (incremental distinct) runs ONE launch of the
+CUDA ladder probe for both sides and sums the found weights in plain
+torch. The host aggregate's group gather calls
+``cuda_kernels.gather_ladder`` directly, and the compiled aggregate calls
+``cuda_kernels.agg_ladder``.
 
 Overflow contract (as in the reference): the match total comes back
 UNCLAMPED; when it exceeds ``out_cap`` the tail matches drop off and the
@@ -59,14 +60,13 @@ def join_ladder(delta: Batch, levels: Sequence[Batch], nk: int, fn,
 def old_weights_ladder(delta: Batch, levels: Sequence[Batch]
                        ) -> torch.Tensor:
     """Accumulated weight of each delta ROW (keys+vals) across ALL levels:
-    a left and a right ladder probe of the full rows (the CUDA probe
-    kernel on a CUDA tensor), then the found weights summed across levels.
-    Rows are unique within a consolidated level, so each (level, row)
-    range is 0 or 1 wide."""
+    the left and the right ladder probe of the full rows (one launch of
+    the CUDA probe kernel on a CUDA tensor), then the found weights summed
+    across levels. Rows are unique within a consolidated level, so each
+    (level, row) range is 0 or 1 wide."""
     assert levels, "old_weights_ladder: trace has no levels"
-    tables = [lvl.cols for lvl in levels]
-    lo = cuda_kernels.lex_probe_ladder(tables, delta.cols, side="left")
-    hi = cuda_kernels.lex_probe_ladder(tables, delta.cols, side="right")
+    lo, hi = cuda_kernels.lex_probe_ladder_both(
+        [lvl.cols for lvl in levels], delta.cols)
     found = (hi > lo) & (delta.weights != 0)[None, :]
     old = torch.zeros_like(delta.weights)
     for k, lvl in enumerate(levels):

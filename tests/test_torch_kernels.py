@@ -118,6 +118,68 @@ def test_lex_probe_ladder_plain_equals_pallas(pallas_interpret, side):
     assert cases == 9
 
 
+def _sorted_rows(rng, n, specs):
+    """n rows sorted lexicographically, column i drawn from [lo, hi) as
+    ``specs[i] = (lo, hi, numpy dtype)``: narrow ranges give runs of
+    equal rows."""
+    cols = [rng.integers(lo, hi, n).astype(dt) for lo, hi, dt in specs]
+    order = np.lexsort(cols[::-1])
+    return [c[order] for c in cols]
+
+
+I64 = np.int64
+SENTINEL = np.iinfo(np.int64).max
+
+
+def _probe_both_case(name, rng):
+    """(tables, queries) as numpy columns, for the two-sided probe."""
+    if name.startswith("dup-runs"):
+        ncols = int(name.split("-")[2][:-3])
+        # two varying columns at most, the rest constant: runs of equal rows
+        spec = [(0, 4 if ncols == 1 else 2, I64)] * min(ncols, 2) + \
+            [(7, 8, I64)] * (ncols - 2)
+        qspec = [(-1, 5 if ncols == 1 else 3, I64)] * min(ncols, 2) + \
+            [(7, 8, I64)] * (ncols - 2)
+        return ([_sorted_rows(rng, n, spec) for n in (40, 17, 5)],
+                _sorted_rows(rng, 30, qspec))
+    spec = [(0, 6, I64)] * 2
+    tables = [_sorted_rows(rng, n, spec) for n in (50, 9)]
+    queries = _sorted_rows(rng, 25, [(-1, 7, I64)] * 2)
+    if name == "cap0-level":
+        return tables[:1] + [[np.zeros(0, I64)] * 2] + tables[1:], queries
+    if name == "one-row-level":
+        return tables + [_sorted_rows(rng, 1, spec)], queries
+    if name == "sentinel-queries":
+        return tables, [np.concatenate([q, np.full(6, SENTINEL)])
+                        for q in queries]
+    assert name == "narrow-columns"
+    spec = [(0, 5, np.int32), (0, 2, np.bool_), (-3, 3, np.int8)]
+    return ([_sorted_rows(rng, n, spec) for n in (60, 12)],
+            _sorted_rows(rng, 20, [(0, 6, I64), (0, 2, np.bool_),
+                                   (-4, 4, np.int32)]))
+
+
+@pytest.mark.parametrize("case", [
+    "dup-runs-1col", "dup-runs-3col", "dup-runs-16col", "cap0-level",
+    "one-row-level", "sentinel-queries", "narrow-columns"])
+def test_lex_probe_ladder_both_plain_equals_pallas(pallas_interpret, case):
+    """Both sides of one probe against the Pallas probe's left and right
+    sides, on tables with runs of equal rows (so hi - lo > 1), a cap-0
+    level, a one-row level, sentinel queries and narrow columns."""
+    rng = np.random.default_rng(41)
+    tables, queries = _probe_both_case(case, rng)
+    lo, hi = cuda_kernels.lex_probe_ladder_both(
+        [tuple(_t(c) for c in t) for t in tables],
+        tuple(_t(q) for q in queries))
+    for side, got in (("left", lo), ("right", hi)):
+        want = pallas_kernels.lex_probe_ladder_pallas(
+            [tuple(jnp.asarray(c) for c in t) for t in tables],
+            tuple(jnp.asarray(q) for q in queries), side)
+        _assert_same(got, want, f"{case} side {side}")
+    if case.startswith("dup-runs"):
+        assert int((hi - lo).max()) > 1, "no run of equal rows was probed"
+
+
 # out_cap 4 is below the larger ladders' match totals: the overflow
 # contract (clamped buffers, unclamped total) is part of what is compared
 @pytest.mark.parametrize("out_cap", [1024, 4])
@@ -289,17 +351,109 @@ def _rank_cases(rng):
                               np.array([1, 2, 3], np.int64), cap=8))
 
 
-def test_rank_merge_plain_equals_pallas(pallas_interpret):
-    rng = np.random.default_rng(10)
-    for a, b in _rank_cases(rng):
+def _rank_case(name, rng):
+    """(cols_a, w_a, cols_b, w_b) as numpy arrays: two sorted runs."""
+    def w(n):
+        return rng.integers(-3, 4, n).astype(I64)
+
+    two = [(0, 9, I64)] * 2
+    if name == "ties-first-column":
+        spec = [(0, 3, I64), (0, 1000, I64)]
+        a, b = _sorted_rows(rng, 40, spec), _sorted_rows(rng, 60, spec)
+    elif name == "equal-rows-both-sides":
+        a = _sorted_rows(rng, 30, two)
+        # every third row of a, and a's rows again: equal rows across sides
+        both = [np.concatenate([c, c[::3]]) for c in a]
+        order = np.lexsort(both[::-1])
+        b = [c[order] for c in both]
+    elif name == "a-empty":
+        a, b = _sorted_rows(rng, 0, two), _sorted_rows(rng, 30, two)
+    elif name == "b-empty":
+        a, b = _sorted_rows(rng, 30, two), _sorted_rows(rng, 0, two)
+    elif name == "skew-1-20":  # q4's 92k delta against a 2M level, scaled
+        spec = [(0, 5_000, I64), (0, 1 << 40, I64), (0, 16, np.int32)]
+        a, b = _sorted_rows(rng, 50, spec), _sorted_rows(rng, 1_000, spec)
+    elif name == "all-rows-equal":
+        spec = [(4, 5, I64)] * 2
+        a, b = _sorted_rows(rng, 30, spec), _sorted_rows(rng, 50, spec)
+    else:
+        assert name == "int32-bool-columns"
+        spec = [(0, 5, np.int32), (0, 2, np.bool_), (-9, 9, np.int32)]
+        a, b = _sorted_rows(rng, 45, spec), _sorted_rows(rng, 35, spec)
+    return a, w(len(a[0])), b, w(len(b[0]))
+
+
+def _assert_rank_merge(a_cols, a_w, b_cols, b_w, what):
+    if len(a_w) and len(b_w):
         want_cols, want_w = pallas_kernels.rank_merge_scatter(
-            a.cols, a.weights, b.cols, b.weights)
+            tuple(jnp.asarray(c) for c in a_cols), jnp.asarray(a_w),
+            tuple(jnp.asarray(c) for c in b_cols), jnp.asarray(b_w))
+    else:
+        # the Pallas interpreter takes no zero-row block: with one side
+        # empty the merge is the other side as it is, in a's dtypes
+        want_cols = [np.concatenate([ca, cb.astype(ca.dtype)])
+                     for ca, cb in zip(a_cols, b_cols)]
+        want_w = np.concatenate([a_w, b_w.astype(a_w.dtype)])
+    got_cols, got_w = cuda_kernels.rank_merge_scatter(
+        tuple(_t(c) for c in a_cols), _t(a_w),
+        tuple(_t(c) for c in b_cols), _t(b_w))
+    assert len(got_cols) == len(want_cols)
+    for g, e in zip(got_cols, want_cols):
+        _assert_same(g, e, f"{what} cols")
+    _assert_same(got_w, want_w, f"{what} w")
+
+
+@pytest.mark.parametrize("case", [
+    "consolidated-batches", "ties-first-column", "equal-rows-both-sides",
+    "a-empty", "b-empty", "skew-1-20", "all-rows-equal",
+    "int32-bool-columns"])
+def test_rank_merge_plain_equals_pallas(pallas_interpret, case):
+    """The plain rank merge against the Pallas one: consolidated batches
+    (dead tails, full capacity, an empty side), ties on the first column
+    only, rows present on both sides, either side empty, a 1:20 size
+    skew, runs of equal rows within each side, int32 and bool columns.
+    An empty side is held to the other side as it is."""
+    if case != "consolidated-batches":
+        _assert_rank_merge(*_rank_case(case, np.random.default_rng(11)),
+                           case)
+        return
+    rng = np.random.default_rng(10)
+    for i, (a, b) in enumerate(_rank_cases(rng)):
         pa, pb = _port(a), _port(b)
-        got_cols, got_w = cuda_kernels.rank_merge_scatter(
-            pa.cols, pa.weights, pb.cols, pb.weights)
-        for g, e in zip(got_cols, want_cols):
-            _assert_same(g, e, "cols")
-        _assert_same(got_w, want_w, "w")
+        _assert_rank_merge([c.numpy() for c in pa.cols], pa.weights.numpy(),
+                           [c.numpy() for c in pb.cols], pb.weights.numpy(),
+                           f"pair {i}")
+
+
+def test_kernel_stages_fit():
+    """The rank merge's tile fits what the kernel accepts (csrc: a tile
+    that is a multiple of 256 threads, within 227 KB) for every column
+    count it takes."""
+    for ncols in range(1, cuda_kernels.MAX_COLS + 1):
+        t = cuda_kernels.rank_merge_tile(ncols)
+        assert t % cuda_kernels.MERGE_THREADS == 0 and t >= 256
+        assert ((ncols + 1) * 8 + 4) * t <= cuda_kernels.MERGE_STAGE_BYTES
+    assert cuda_kernels.rank_merge_tile(5) == 1024  # q4's bids rows
+
+
+def test_column_kinds_match_the_kernels():
+    """The wrapper's element-type codes are csrc/common.cuh's ColKind, and
+    a column of another type is refused, not misread."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cuda_kernels.__file__).resolve().parent.parent / "csrc" /
+           "common.cuh").read_text()
+    enum = {name: int(v) for name, v in
+            re.findall(r"KIND_(\w+) = (\d+)", src)}
+    names = {torch.int64: "I64", torch.int32: "I32", torch.int16: "I16",
+             torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+    assert {names[d]: k for d, k in cuda_kernels._KINDS.items()} == enum
+    blk = cuda_kernels._ArgBlock(torch.device("cuda", 0), 4, "test")
+    with pytest.raises(ValueError, match="bool columns only"):
+        blk.col_at_width(0, torch.zeros(4, dtype=torch.float32))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        blk.col_at_width(0, torch.zeros(4, dtype=torch.int64))
 
 
 def test_cpu_tensors_take_the_plain_versions():
