@@ -20,8 +20,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
              and larger, with runs of equal rows and narrow columns; the
              rank merge at 0, 1, T-1, T, T+1 and 3T+7 rows for its tile
              T, with equal runs longer than a tile, all rows equal, 1, 5
-             and 16 columns and narrow columns) and on inputs of the queries' sizes (ladders
-             up to 2M rows, 100k-row deltas);
+             and 16 columns and narrow columns; segment reduce on random
+             ids and on runs across a warp, block and tile edge, one
+             segment, alternating ids, runs broken by out-of-range ids
+             and w <= 0, a trash-segment tail, 0, 1, T-1, T and T+1 rows
+             for its tile T, int32 / int64 ids, int64 / int32 / int16 /
+             bool values, unaligned columns, wrapping sums, an avg at
+             INT64_MIN and a spec wide enough for the argument table,
+             each with Max + present, Count + present, Max alone, three
+             ops without an avg and all six ops)
+             and on inputs of the queries' sizes (ladders up to 2M rows,
+             100k-row deltas);
 4. queries — Nexmark q4, q3, q8 and q15, one after the other, each on the
              host runtime on the card at 100,000 events per tick: 4 warm
              ticks then 20 measured (2,000,000 events, a cut of Nexmark's
@@ -51,12 +60,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
              PyTorch library call, on the largest inputs the queries gave
              it: ``ms`` per call by CUDA events (host gaps between
              launches included), ``device_ms`` the kernel's device time
-             alone by torch.profiler;
+             alone by torch.profiler, and the device operations a call
+             queues; segment reduce also on the same call with uniformly
+             random ids;
 7. turns   — only with ``--parent DIR`` (another tree of the repo, such as
              the parent commit unpacked with ``git archive``; repeat the
              option for more trees): every kernel entry point's largest
              main-path call whose arguments are plain tensors and values
-             (the lex probe, segment reduce and rank merge), saved and
+             (the lex probe, segment reduce, also with random ids, and
+             rank merge), saved and
              timed in each tree that has that entry point, in turns (the
              other trees, this, this, the others in reverse), each turn a
              process of its own, after one timing in this process; the
@@ -262,6 +274,137 @@ def seg_case(rng, n, S, dev):
         w[:2] = -1
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return (t(v1), t(v2)), t(w), t(seg)
+
+
+# segment-reduce specs: the main path's two, odd op counts without an avg
+# (the kernel reduces ops two at a time), and all six ops
+SEG_SPECS = {
+    "max+present": (("max", 0), ("present", 0)),
+    "count+present": (("count", 0), ("present", 0)),
+    "max alone": (("max", 0),),
+    "max, max, present": (("max", 0), ("max", 2), ("present", 0)),
+    "all six": (("count", 0), ("sum", 0), ("min", 1), ("max", 2),
+                ("avg", 0), ("present", 0), ("sum", 3)),
+}
+
+
+def seg_layouts(rng, tile: int):
+    """Segment-reduce inputs aimed at the run-wise reduction: ``{name:
+    (ids, w, nseg)}``, numpy, ids int32 unless named otherwise."""
+    def runs(bounds, n):  # sorted ids, a run per gap, odd ids empty
+        return (2 * np.repeat(np.arange(len(bounds) - 1),
+                              np.diff(bounds)))[:n].astype(np.int32)
+
+    def sorted_runs(n, mean=7):
+        bounds = np.concatenate([[0], np.cumsum(
+            rng.integers(1, 2 * mean, n + 1))])
+        return runs(bounds[bounds <= n].tolist() + [n], n)
+
+    def w_of(n):
+        return rng.integers(-3, 4, n)
+
+    W, T = 128, tile  # rows per warp, per tile
+    n = 3 * T + 7
+    # runs across a thread's stretch (2-6), a warp edge (W - 28 .. W + 12),
+    # a tile edge (T - 24 .. T + 26) and a whole tile (2T - 8 .. 3T + 2)
+    bounds = [0, 1, 2, 6, W - 28, W + 12, 300, T - 24, T + 26, T + 36,
+              T + 37, T + 38, 2 * T - 8, 3 * T + 2, n]
+    ids = runs(bounds, n)
+    assert ids[W - 1] == ids[W] and ids[T - 1] == ids[T]
+    out = {"runs across warp, block and tile edges":
+           (ids, w_of(n), int(ids.max()) + 2)}
+    out["one segment, all rows"] = (np.zeros(n, np.int32), w_of(n), 1)
+    out["alternating ids"] = ((np.arange(n) % 2 * 5).astype(np.int32),
+                              w_of(n), 6)
+    ids = np.sort(rng.integers(0, 300, n)).astype(np.int32)
+    w = w_of(n)
+    w[rng.random(n) < 0.2] = 0
+    w[ids == ids[n // 2]] = -1  # a run of retractions only
+    cut = rng.random(n) < 0.05
+    ids[cut] = rng.choice([-1, 300, 2**31 - 1], int(cut.sum()))
+    out["sorted runs broken by out-of-range ids and w <= 0"] = (ids, w, 300)
+    out["the same, int64 ids"] = (ids.astype(np.int64), w, 300)
+    n = 2 * T + 100  # a gathered part: the dead rows in the trash segment
+    ids = np.full(n, 50, np.int32)
+    ids[:n // 3] = np.sort(rng.integers(0, 50, n // 3))
+    w = w_of(n)
+    w[n // 3:] = 0
+    out["trash segment nseg - 1 holding a long tail"] = (ids, w, 51)
+    for n in (0, 1, T - 1, T, T + 1):
+        out[f"n {n}"] = (sorted_runs(n), w_of(n), 2 * n + 1)
+    return out
+
+
+def seg_vals(rng, n, dev, big=False):
+    """int64 (+-2^62 with ``big``: sums wrap), int32, int16 and bool
+    value columns on the card."""
+    import torch
+
+    v1 = (rng.integers(-2**62, 2**62, n) if big
+          else rng.integers(-1000, 1000, n))
+    cols = (v1, rng.integers(-2**31, 2**31, n).astype(np.int32),
+            rng.integers(-2**15, 2**15, n).astype(np.int16),
+            rng.integers(0, 2, n).astype(np.bool_))
+    return tuple(torch.from_numpy(c).to(dev) for c in cols)
+
+
+def check_segment_runs(ck: Checker, rng, dev) -> None:
+    """Segment reduce against its plain version on inputs aimed at the
+    run-wise reduction, each with every spec of ``SEG_SPECS``; then
+    wrapping sums and an avg at INT64_MIN, columns at unaligned addresses,
+    a one-segment 2M-row input, and a spec wide enough for the argument
+    table."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    def check(what, spec, vals, w, ids, nseg):
+        ck.check("segment_reduce", what, ck_mod.segment_reduce,
+                 ck_mod.segment_reduce_plain, spec, vals, w, ids, nseg,
+                 seg_out_dtypes(spec, vals, w))
+
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    for name, (ids, w, nseg) in seg_layouts(rng, ck_mod.SEG_TILE).items():
+        vals = seg_vals(rng, len(ids), dev)
+        for sname, spec in SEG_SPECS.items():
+            check(f"{name}, {sname}", spec, vals, t(w), t(ids), nseg)
+    # sums that wrap; segment 3 averages INT64_MIN exactly, segment 5
+    # holds INT64_MIN times 3 (wraps)
+    n = ck_mod.SEG_TILE + 5
+    vals = seg_vals(rng, n, dev, big=True)
+    ids = rng.integers(0, 40, n)
+    ids[2:][ids[2:] == 3] = 4
+    ids[2:][ids[2:] == 5] = 6
+    ids[:2] = (3, 5)
+    w = rng.integers(-3, 4, n)
+    w[:2] = (1, 3)
+    v1 = vals[0].cpu().numpy().copy()
+    v1[:2] = np.iinfo(np.int64).min
+    order = np.argsort(ids, kind="stable")
+    on_dev = torch.from_numpy(order).to(dev)
+    vals = (t(v1[order]), *(v[on_dev] for v in vals[1:]))
+    check("wrapping sums, avg at INT64_MIN", SEG_SPECS["all six"], vals,
+          t(w[order]), t(ids[order].astype(np.int32)), 40)
+    # every column one row past an aligned address: no vector loads
+    ids, w, nseg = seg_layouts(rng, ck_mod.SEG_TILE)[
+        "sorted runs broken by out-of-range ids and w <= 0"]
+    vals = tuple(v[1:] for v in seg_vals(rng, len(ids) + 1, dev))
+    check("unaligned columns, all six", SEG_SPECS["all six"], vals,
+          t(np.concatenate([[0], w]))[1:],
+          t(np.concatenate([[0], ids]).astype(np.int32))[1:], nseg)
+    # one segment of 2M rows: runs across 1,954 tiles
+    n = 2_000_000
+    vals = seg_vals(rng, n, dev)
+    for sname, spec in SEG_SPECS.items():
+        check(f"one segment of {n} rows, {sname}", spec, vals,
+              t(rng.integers(-3, 4, n)), t(np.full(n, 6, np.int32)), 7)
+    # 121 ops over 4 columns: 2 * 4 + 4 + 4 * 121 = 496 slots, above the
+    # by-value block
+    spec = SEG_SPECS["all six"] * 17 + SEG_SPECS["max+present"]
+    ids, w, nseg = seg_layouts(rng, ck_mod.SEG_TILE)[
+        "runs across warp, block and tile edges"]
+    check(f"{len(spec)} ops (argument table)", spec,
+          seg_vals(rng, len(ids), dev), t(w), t(ids), nseg)
 
 
 def seg_out_dtypes(spec, vals, w):
@@ -623,12 +766,13 @@ def check_kernels(ck: Checker, dev) -> None:
         ck.check("gather_ladder", f"q4-sized out_cap {out_cap}",
                  ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
                  delta.keys, delta.weights != 0, big, out_cap)
-    # -- segment reduce
+    # -- segment reduce: random ids, then runs
     for n, S in ((1, 1), (64, 7), (500, 130), (300, 3), (2_000_000, 100_000)):
         vals, w, seg = seg_case(rng, n, S, dev)
         ck.check("segment_reduce", f"n {n} segments {S}",
                  ck_mod.segment_reduce, ck_mod.segment_reduce_plain,
                  SPEC, vals, w, seg, S, seg_out_dtypes(SPEC, vals, w))
+    check_segment_runs(ck, rng, dev)
     # -- rank merge: duplicates, sentinel tails, full capacity, empty side
     from dbsp_tpu_torch.zset.batch import Batch
 
@@ -1191,10 +1335,19 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+# After the kernels are built, a profiler session in the building process
+# drops its first one or two device events (seen on the H100: 8 of 10
+# one-kernel calls counted). Each session of device_ms starts with this
+# many throwaway kernels (torch.cuda._sleep's), which it does not count.
+PROFILER_SENTINELS = 4
+SENTINEL_KERNEL = "spin_kernel"
+
+
 def device_ms(fn, reps: int = 10):
-    """Device time of one call: torch.profiler's summed device time of
-    every kernel that ``reps`` calls launched, over ``reps`` (None if the
-    profiler saw no device activity)."""
+    """Device time of one call and the device operations (kernels and
+    copies) it queues: torch.profiler's summed device time of everything
+    that ``reps`` calls launched, and their count, over ``reps`` (None
+    and 0 if the profiler saw no device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1202,12 +1355,35 @@ def device_ms(fn, reps: int = 10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_SENTINELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(ev.device_time_total for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / 1e3 / reps if total_us else None
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    seen = sum(SENTINEL_KERNEL in ev.name for ev in evs)
+    if not seen:
+        fail("the profiler dropped every sentinel kernel of a session: "
+             "the device times after them may be short")
+    evs = [ev for ev in evs if SENTINEL_KERNEL not in ev.name]
+    total_us = sum(ev.device_time_total for ev in evs)
+    return (total_us / 1e3 / reps if total_us else None), len(evs) / reps
+
+
+def random_ids(args):
+    """A segment-reduce call's arguments with its ids replaced by ids
+    drawn uniformly from [0, num_segments) on the card (seeded), of the
+    same dtype and count: every run one row long, almost."""
+    import torch
+
+    spec, vals, w, seg, nseg = args[:5]
+    gen = torch.Generator(device=seg.device)
+    gen.manual_seed(7)
+    ids = torch.randint(0, nseg, seg.shape, generator=gen,
+                        device=seg.device, dtype=seg.dtype)
+    return (spec, vals, w, ids, *args[4:])
 
 
 def _nbytes(t) -> int:
@@ -1355,12 +1531,14 @@ LADDER_NO_LIBRARY = (
 def kernel_table(captured, runs, ck: Checker):
     """One row per kernel: its launches on each query's run and per
     measured tick, and its times at the largest call the queries gave
-    it."""
+    it. Also returns the variants of those calls it timed, ``{key: (entry
+    point, args, kw)}``, for the turns."""
     import torch
 
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     rows = []
+    variants = {}
     for name in REPLACES:
         size, args, kw, query = captured[name]
         if args is None:
@@ -1390,7 +1568,7 @@ def kernel_table(captured, runs, ck: Checker):
         if name == "agg_ladder":
             kern = ck_mod.agg_ladder  # timed without the launch check
         ms = time_ms(lambda: kern(*args, **kw))
-        kernel_device_ms = device_ms(lambda: kern(*args, **kw))
+        kernel_device_ms, device_ops = device_ms(lambda: kern(*args, **kw))
         plain_ms = time_ms(lambda: plain(*args, **kw))
         library_ms = None
         extra = {}
@@ -1437,6 +1615,18 @@ def kernel_table(captured, runs, ck: Checker):
             base = torch.zeros(nseg + 1, dtype=v.dtype, device=v.device)
             library_ms = time_ms(lambda: base.scatter_reduce(
                 0, idx, v, reduce=red, include_self=True))
+            # the same call with uniformly random ids: runs of one row
+            rnd = random_ids(args)
+            variants[f"{name}, random ids"] = (name, rnd, kw)
+            ck.check(name, f"largest call with random ids (size {size})",
+                     kern, plain, *rnd, **kw)
+            rnd_dev = device_ms(lambda: kern(*rnd, **kw))
+            extra["random_ids"] = {
+                "ms": time_ms(lambda: kern(*rnd, **kw)),
+                "device_ms": rnd_dev[0], "device_ops_per_call": rnd_dev[1]}
+            extra["shape"] = {"rows": w.shape[0], "segments": nseg,
+                              "spec": [op for op, _ in spec],
+                              "id_dtype": str(seg.dtype)}
         else:
             nbytes, ops = rank_bound(args)
             extra["tile"] = ck_mod.rank_merge_tile(len(args[0]))
@@ -1463,13 +1653,14 @@ def kernel_table(captured, runs, ck: Checker):
                 for q, (_, per_tick) in runs.items()
                 if q in by_query and per_tick[name]},
             "max_abs_err": ck.max_err[name], "ms": ms,
-            "device_ms": kernel_device_ms, "plain_ms": plain_ms,
+            "device_ms": kernel_device_ms,
+            "device_ops_per_call": device_ops, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "checks": ck.cases[name],
             "timed_call_size": size, "timed_on": query, **extra,
         })
-    return rows
+    return rows, variants
 
 
 # ---------------------------------------------------------------------------
@@ -1505,15 +1696,16 @@ def _plain_data(x) -> bool:
 
 
 def time_calls(ck_mod, calls: dict, label: str) -> dict:
-    """Time each saved call ``{entry point: (args, kw)}`` whose entry
+    """Time each saved call ``{key: (entry point, args, kw)}`` whose entry
     point ``ck_mod`` has: launches per call, a checksum of its outputs,
-    ``ms`` and ``device_ms`` as in the kernel table."""
+    ``ms``, ``device_ms`` and the device operations per call, as in the
+    kernel table."""
     import torch
 
     dev = torch.device("cuda")
     out = {"tree": label}
-    for name, (args, kw) in calls.items():
-        fn = getattr(ck_mod, name, None)
+    for name, (entry, args, kw) in calls.items():
+        fn = getattr(ck_mod, entry, None)
         if fn is None:
             continue
         args, kw = _to(args, dev), _to(kw, dev)
@@ -1525,8 +1717,9 @@ def time_calls(ck_mod, calls: dict, label: str) -> dict:
             "checksum": [int((t.to(torch.int64) * torch.arange(
                 1, t.numel() + 1, device=dev).reshape(t.shape)).sum())
                 for t in got],
-            "ms": time_ms(lambda: fn(*args, **kw)),
-            "device_ms": device_ms(lambda: fn(*args, **kw))}
+            "ms": time_ms(lambda: fn(*args, **kw))}
+        out[name]["device_ms"], out[name]["device_ops_per_call"] = \
+            device_ms(lambda: fn(*args, **kw))
     return out
 
 
@@ -1546,8 +1739,8 @@ def time_saved(tree: str, path: str) -> None:
 
 
 def time_in_turns(calls: dict, others: list) -> list:
-    """The kernels' largest main-path calls ``{entry point: (args, kw)}``
-    that can be saved (:func:`_plain_data`), timed in every tree of
+    """The kernels' largest main-path calls ``{key: (entry point, args,
+    kw)}`` that can be saved (:func:`_plain_data`), timed in every tree of
     ``others`` and in this one, in turns (the others, this, this, the
     others in reverse), each turn a process of its own; first, the same
     saved calls in this process. A tree times the entry points it has.
@@ -1648,7 +1841,7 @@ def main() -> int:
         for name in COMPILED:
             runs[f"{name}-compiled"] = run_compiled(name)
     captured = {r.name: r.best for r in recs}
-    calls = {name: (args, kw) for name, (_, args, kw, _) in
+    calls = {name: (name, args, kw) for name, (_, args, kw, _) in
              captured.items() if args is not None}
     captured["rank_merge"] = captured.pop("rank_merge_scatter")
     captured["lex_probe_ladder"] = captured.pop("lex_probe_ladder_both")
@@ -1660,10 +1853,11 @@ def main() -> int:
             f"events, {rows} output rows equal on the CPU and on the card")
 
     # 6. kernel table at the shapes the queries gave each kernel
-    table = kernel_table(captured, runs, ck)
+    table, variants = kernel_table(captured, runs, ck)
     if opts.parent:
         # 7. the other trees' kernels against this tree's, in turns
-        say(json.dumps({"turns": time_in_turns(calls, opts.parent)}))
+        say(json.dumps({"turns": time_in_turns({**calls, **variants},
+                                                opts.parent)}))
     say(json.dumps({"kernels": table}))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,12 @@
 // block every launch takes, and the lexicographic binary search that
 // replaces the Pallas `_lex_search` (dbsp_tpu/zset/pallas_kernels.py:102).
 //
-// A column reaches the ladder consumer and segment reduce as an int64
-// device pointer: their wrappers widen narrower integer and bool columns
-// first, as the Pallas wrappers do. The lex probe and the rank merge read
-// (and the merge writes) each column at its own width instead, with its
+// A column reaches the ladder consumer as an int64 device pointer: its
+// wrappers widen narrower integer and bool columns first, as the Pallas
+// wrappers do. The lex probe, segment reduce and the rank merge read (and
+// the merge writes) each column at its own width instead, with its
 // `ColKind` in the argument block; they widen every value to int64 as
-// they load it, so their compares are the same signed int64 compares.
+// they load it, so their compares and sums are the same int64 ones.
 // Pointers and small integers travel in one argument block
 // of int64 slots; each wrapper documents its own slot layout. Kernels are
 // templates over where the block lives:

@@ -24,15 +24,15 @@ the other. Each launch adds one to ``LAUNCHES[name]``.
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
 shared library per source with a plain C interface, all sources at once,
 into ``dbsp_tpu_torch/_build/<hash of the sources>/``, and loaded with
-``ctypes``. The lex probe and the rank merge read (and the merge writes)
-every column at its own width, with its element type in the argument
-block (``_KINDS``). The ladder consumer and segment reduce take int64
-columns: their wrappers widen narrower integer and bool columns, as the
-Pallas wrappers do, and narrow the results back. Float columns are
-refused. A launch's pointers and sizes travel in one argument block: by
-value as a kernel parameter up to ``ARGS_MAX`` slots, above that as a
-device table uploaded from pinned memory without a sync, so a ladder of
-any depth launches.
+``ctypes``. The lex probe, segment reduce and the rank merge read (and
+the merge writes) every column at its own width, with its element type in
+the argument block (``_KINDS``). The ladder consumer takes int64 columns:
+its wrappers widen narrower integer and bool columns, as the Pallas
+wrappers do, and narrow the results back. Float columns are refused. A
+launch's pointers and sizes travel in one argument block: by value as a
+kernel parameter up to ``ARGS_MAX`` slots, above that as a device table
+uploaded from pinned memory without a sync, so a ladder of any depth
+launches.
 """
 
 from __future__ import annotations
@@ -145,7 +145,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                                 P]
         lib.ladder_consumer.restype = I
     if hasattr(lib, "segment_reduce"):
-        lib.segment_reduce.argtypes = block + [I, I, L, L, I, P, P]
+        lib.segment_reduce.argtypes = block + [I, I, L, L, P, P]
         lib.segment_reduce.restype = I
     if hasattr(lib, "rank_merge"):
         lib.rank_merge.argtypes = block + [I, L, L, I, P]
@@ -567,6 +567,8 @@ def gather_ladder_plain(qkeys: Cols, qlive: torch.Tensor, levels: Sequence,
 # ---------------------------------------------------------------------------
 
 SEG_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3, "avg": 4, "present": 5}
+# rows per segment-reduce block (csrc/segment_reduce.cu: THREADS x ITEMS)
+SEG_TILE = 1024
 
 
 def _seg_ident(op: str, src: torch.dtype) -> int:
@@ -598,11 +600,11 @@ def segment_reduce(spec, val_cols: Cols, weights: torch.Tensor,
     nv, nops, n = len(val_cols), len(spec), weights.shape[0]
     if num_segments < 1:
         raise ValueError(f"{what}: num_segments must be >= 1")
-    args = _ArgBlock(dev, nv + 2 + 4 * nops, what)
-    for c, v in enumerate(val_cols):
-        args.col(c, v)
-    args.col(nv, weights)
-    args.col(nv + 1, seg)
+    # slots: the columns, the op triples, the outputs, the columns' kinds
+    kinds = nv + 2 + 4 * nops
+    args = _ArgBlock(dev, kinds + nv + 2, what)
+    for c, t in enumerate((*val_cols, weights, seg)):
+        args.slots[kinds + c] = args.col_at_width(c, t)
     for o, (op, col) in enumerate(spec):
         src = val_cols[col].dtype if op in ("min", "max") else torch.int64
         args.slots[nv + 2 + 3 * o] = SEG_OPS[op]
@@ -610,10 +612,11 @@ def segment_reduce(spec, val_cols: Cols, weights: torch.Tensor,
         args.slots[nv + 4 + 3 * o] = _seg_ident(op, src)
     outs = [args.out(nv + 2 + 3 * nops + o, num_segments)
             for o in range(nops)]
-    wsum = torch.empty((num_segments,), dtype=torch.int64, device=dev)
+    # avg's weight sums, which its finishing pass divides by
+    wsum = (torch.empty((num_segments,), dtype=torch.int64, device=dev)
+            if any(op == "avg" for op, _ in spec) else None)
     args.launch(load_library("segment_reduce").segment_reduce, nv, nops, n,
-                num_segments, int(any(op == "avg" for op, _ in spec)),
-                wsum.data_ptr())
+                num_segments, None if wsum is None else wsum.data_ptr())
     LAUNCHES[what] += 1
     return tuple(o.to(d) for o, d in zip(outs, out_dtypes))
 

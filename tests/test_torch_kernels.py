@@ -300,22 +300,58 @@ def _seg_case(rng, n, S):
     return (v1, v2), w, seg
 
 
-@pytest.mark.parametrize("n,S", [(1, 1), (64, 7), (500, 130), (300, 3)])
-def test_segment_reduce_plain_equals_pallas(pallas_interpret, n, S):
+# SPEC over two more narrow columns: an int16 max and a bool sum
+NARROW_SPEC = SPEC + (("max", 2), ("sum", 3))
+
+
+def _seg_ordered(rng, n, S, order):
+    """Ids in ``order`` (all int32) with the value columns of
+    NARROW_SPEC: sorted runs broken by out-of-range ids and by rows of
+    w <= 0 (one run of retractions only), one segment holding every row,
+    or alternating ids (every run one row long)."""
+    (v1, v2), w, _ = _seg_case(rng, n, S)
+    if order == "sorted":
+        seg = np.sort(rng.integers(0, S, n))
+        cut = rng.random(n) < 0.05
+        seg[cut] = rng.choice([-1, S, S + 7], int(cut.sum()))
+        w[rng.random(n) < 0.2] = 0
+        w[seg == seg[n // 2]] = -1
+    elif order == "one":
+        seg = np.full(n, S // 2)
+    else:
+        seg = np.arange(n) % 2  # id 1 is out of range when S == 1
+    v3 = rng.integers(-300, 300, n).astype(np.int16)
+    v4 = rng.integers(0, 2, n).astype(np.bool_)
+    return (v1, v2, v3, v4), w, seg.astype(np.int32)
+
+
+@pytest.mark.parametrize("order,n,S", [
+    *(pytest.param("random", n, S, id=f"{n}-{S}")
+      for n, S in ((1, 1), (64, 7), (500, 130), (300, 3))),
+    *((order, n, S) for order in ("sorted", "one", "alternating")
+      for n, S in ((1, 1), (64, 7), (500, 130), (300, 3)))])
+def test_segment_reduce_plain_equals_pallas(pallas_interpret, order, n, S):
+    """Random ids (SPEC), and int32 ids in sorted runs, in one segment or
+    alternating, with int32, int16 and bool value columns
+    (NARROW_SPEC)."""
     rng = np.random.default_rng(20 + n)
-    (v1, v2), w, seg = _seg_case(rng, n, S)
-    jv = (jnp.asarray(v1), jnp.asarray(v2))
+    if order == "random":
+        spec = SPEC
+        vals, w, seg = _seg_case(rng, n, S)
+    else:
+        spec = NARROW_SPEC
+        vals, w, seg = _seg_ordered(rng, n, S, order)
+    jv = tuple(jnp.asarray(v) for v in vals)
     jw = jnp.asarray(w)
-    out_dtypes = tuple(_seg_out_dtype(op, col, jv, jw) for op, col in SPEC)
+    out_dtypes = tuple(_seg_out_dtype(op, col, jv, jw) for op, col in spec)
     want = pallas_kernels.segment_reduce_pallas(
-        SPEC, jv, jw, jnp.asarray(seg), S, out_dtypes)
-    tdt = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32}
+        spec, jv, jw, jnp.asarray(seg), S, out_dtypes)
     got = cuda_kernels.segment_reduce(
-        SPEC, (_t(v1), _t(v2)), _t(w), _t(seg), S,
-        tuple(tdt[np.dtype(d)] for d in out_dtypes))
+        spec, tuple(_t(v) for v in vals), _t(w), _t(seg), S,
+        tuple(torch.from_numpy(np.empty(0, d)).dtype for d in out_dtypes))
     assert len(got) == len(want)
     for i, (g, e) in enumerate(zip(got, want)):
-        _assert_same(g, e, f"op {SPEC[i][0]}")
+        _assert_same(g, e, f"op {spec[i][0]}")
 
 
 def test_segment_reduce_avg_truncates_toward_zero(pallas_interpret):
@@ -454,6 +490,26 @@ def test_column_kinds_match_the_kernels():
         blk.col_at_width(0, torch.zeros(4, dtype=torch.float32))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         blk.col_at_width(0, torch.zeros(4, dtype=torch.int64))
+
+
+def test_segment_reduce_constants_match_the_kernel():
+    """The wrapper's opcodes and tile are csrc/segment_reduce.cu's, and
+    the kernel's extra ops (avg's weight sum, the no-op) take codes the
+    spec does not use."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cuda_kernels.__file__).resolve().parent.parent / "csrc" /
+           "segment_reduce.cu").read_text()
+    enum = re.search(r"enum Op \{([^}]*)\}", src).group(1)
+    codes = {name.lower(): int(v)
+             for name, v in re.findall(r"(\w+) = (\d+)", enum)}
+    assert {k: codes[k] for k in cuda_kernels.SEG_OPS} == \
+        cuda_kernels.SEG_OPS
+    assert len(set(codes.values())) == len(codes) == 8
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["THREADS"]) * int(consts["ITEMS"]) == \
+        cuda_kernels.SEG_TILE
 
 
 def test_cpu_tensors_take_the_plain_versions():
