@@ -13,9 +13,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
              dead and all-sentinel queries, duplicates, full capacity,
              total > out_cap, no gathered columns, cap-0 levels, ladders
              wider than the by-value argument block, empty /
-             retraction-only / out-of-range segments, the aggregate
-             chain's fast path with its gate off and on, its general
-             path and netting ladders; the lex probe one side at a time
+             retraction-only / out-of-range segments; the fused
+             aggregate chain as the call's one launch, on its fast path
+             with the gate off and on and its general path, with caps
+             under the unclamped totals, on netting ladders, a cap-0
+             level, zero value columns, an out trace with several rows
+             per key, zero-weight rows inside a delta's group, an
+             all-retraction delta, int32 keys and weights, 90 levels (the
+             argument table), every op of the vocabulary on signed
+             values, and deltas of several tiles (with four hot groups)
+             over a multi-block grid; the lex probe one side at a time
              and both in one launch, on levels of 0, 1 and 127-129 rows
              and larger, with runs of equal rows and narrow columns; the
              rank merge at 0, 1, T-1, T, T+1 and 3T+7 rows for its tile
@@ -62,17 +69,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
              launches included), ``device_ms`` the kernel's device time
              alone by torch.profiler, and the device operations a call
              queues; segment reduce also on the same call with uniformly
-             random ids;
+             random ids, the aggregate chain also on its call with the
+             gate on and on a skewed rebuild of that call (4,000 hot
+             groups, each with ~1,500 history rows: few queries, long
+             merges), each with gather_cap at the bucket of its total;
 7. turns   — only with ``--parent DIR`` (another tree of the repo, such as
              the parent commit unpacked with ``git archive``; repeat the
              option for more trees): every kernel entry point's largest
-             main-path call whose arguments are plain tensors and values
-             (the lex probe, segment reduce, also with random ids, and
-             rank merge), saved and
+             main-path call and the variants phase 6 timed, saved as
+             tensors and plain values (a batch or an aggregator of the
+             package field by field, rebuilt with each tree's own
+             classes) and
              timed in each tree that has that entry point, in turns (the
              other trees, this, this, the others in reverse), each turn a
              process of its own, after one timing in this process; the
-             outputs are checked equal across the turns.
+             outputs are checked equal across the turns;
+8. graph   — the aggregate kernel's cooperative launch at its largest
+             main-path call captured in a CUDA graph and replayed: equal
+             to the eager call, or the capture's refusal reported.
 
 Output: the phase summaries, then one line {"kernels": [...]}, then the
 nvidia-smi line, then the last line
@@ -117,8 +131,7 @@ SOURCE = {
     "gather_ladder": "dbsp_tpu_torch/csrc/ladder_consumer.cu",
     "segment_reduce": "dbsp_tpu_torch/csrc/segment_reduce.cu",
     "rank_merge": "dbsp_tpu_torch/csrc/rank_merge.cu",
-    # the chain over ladder_consumer.cu's gather and segment_reduce.cu
-    "agg_ladder": "dbsp_tpu_torch/zset/cuda_kernels.py",
+    "agg_ladder": "dbsp_tpu_torch/csrc/agg_ladder.cu",
 }
 # the queries driven on the card, in order, and the kernels each one's
 # path must launch
@@ -130,8 +143,7 @@ QUERIES = {
 }
 # the compiled engine's paths, driven after the host engine's
 COMPILED = {
-    "q4": ("join_ladder", "agg_ladder", "gather_ladder", "segment_reduce",
-           "rank_merge"),
+    "q4": ("join_ladder", "agg_ladder", "gather_ladder", "rank_merge"),
     "q3": ("join_ladder", "rank_merge"),
 }
 C_WARM, C_TICKS, C_VALIDATE, C_PROFILE = 4, 24, 8, 8
@@ -639,18 +651,14 @@ def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
 
 def agg_kernel_checked(*args):
     """``cuda_kernels.agg_ladder``, failing unless the call launched the
-    gather kernel twice (the out trace, the input ladder) and the
-    segment-reduce kernel once per reduction (three on the fast path, two
-    on the general path)."""
+    fused kernel once and no gather or segment-reduce kernel."""
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     before = dict(ck_mod.LAUNCHES)
     out = ck_mod.agg_ladder(*args)
     got = {k: ck_mod.LAUNCHES[k] - before[k]
            for k in ("agg_ladder", "gather_ladder", "segment_reduce")}
-    fast = args[7]
-    want = {"agg_ladder": 1, "gather_ladder": 2,
-            "segment_reduce": 3 if fast else 2}
+    want = {"agg_ladder": 1, "gather_ladder": 0, "segment_reduce": 0}
     if got != want:
         fail(f"agg_ladder launched {got}, want {want}")
     return out
@@ -676,32 +684,172 @@ def netting_ladder(rng, dev):
     return [base, back, again]
 
 
-def check_agg_ladder(ck: Checker, rng, dev) -> None:
-    """agg_ladder against agg_ladder_plain on the adversarial ladders, a
-    netting ladder and a cap-0 level: the fast path (Max) with the gate
-    off and on, the general path, and caps under the totals."""
+class SpecAgg:
+    """A spec-only aggregator: ``spec`` as given, int64 outputs."""
+
+    def __init__(self, spec):
+        import torch
+
+        self.spec = tuple(spec)
+        self.out_dtypes = (torch.int64,) * len(self.spec)
+
+    def reduce_spec(self):
+        return self.spec
+
+
+AGG_OPS = (("count", 0), ("sum", 0), ("min", 0), ("max", 0), ("avg", 0),
+           ("present", 0))
+
+
+def narrowed(b, dtype):
+    """Batch ``b`` with its key columns and weights stored as ``dtype``
+    (dead rows keep that dtype's sentinel)."""
     import torch
 
-    from dbsp_tpu_torch.operators.aggregate import Max
-    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset.batch import Batch
 
+    live = b.weights != 0
+    top = torch.iinfo(dtype).max
+    return Batch(tuple(torch.where(live, k, top).to(dtype) for k in b.keys),
+                 b.vals, b.weights.to(dtype), runs=b.runs)
+
+
+def signed(b, by=3):
+    """Batch ``b`` with its live rows' values shifted down by ``by``."""
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    live = b.weights != 0
+    return Batch(b.keys, tuple(v.where(~live, v - by) for v in b.vals),
+                 b.weights, runs=b.runs)
+
+
+def dead_row_case(rng, dev):
+    """A delta with a zero-weight row between two live rows of one key and
+    one just ahead of a key's first live row, with its ladder and out
+    trace."""
+    import torch
+
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    k0 = [1, 1, 2, 2, 2, 3, 4, 4]
+    k1 = [1, 1, 5, 5, 5, 0, 2, 2]
+    v = [4, 7, 1, 3, 8, 2, 5, 6]
+    w = [0, 2, 1, 0, -1, 3, 2, 0]
+    top = np.iinfo(np.int64).max
+
+    def pad(c, fill):
+        return torch.tensor(c + [fill] * (16 - len(c)), device=dev)
+
+    delta = Batch((pad(k0, top), pad(k1, top)), (pad(v, top),), pad(w, 0),
+                  runs=(16,))
+    extra = Batch.from_columns([np.array(k0[1:6]), np.array(k1[1:6])],
+                               [np.full(5, 9)], np.array([1, 2, -1, 1, 3]),
+                               cap=8, device=dev)
+    out_trace = Batch.from_columns([np.array([1, 2, 2, 3]),
+                                    np.array([1, 5, 5, 0])],
+                                   [np.array([40, 10, 12, 5])],
+                                   np.array([1, 1, -1, 1]), cap=8, device=dev)
+    return ([consolidated(rng, 30, 64, dev, key_range=6), extra], delta,
+            out_trace)
+
+
+def agg_cases(rng, dev):
+    """``(name, ladder, delta, out_trace, spec, modes)`` for the aggregate
+    chain: the adversarial ladders, a netting ladder and a cap-0 level
+    (Max), zero value columns (a count), an out trace with several rows
+    per key, zero-weight rows in the delta, an all-retraction delta, int32
+    keys and weights, 90 levels (the device argument table), every op of
+    the vocabulary on signed values, and deltas of several tiles against
+    q_cap over several blocks' query slots (a multi-block grid)."""
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    small = ((True, False, 16, 512), (True, True, 16, 512),
+             (False, True, 16, 512), (True, True, 4, 8),
+             (False, True, 4, 8), (True, False, 4, 8))
+    mx = (("max", 0),)
+    spec3 = ((0, 6, np.int64),) * 3
     ladders = list(adversarial_ladders(rng, dev))
     ladders.append(netting_ladder(rng, dev))
     ladders.append([ladders[0][0], empty_level(dev), ladders[0][2]])
-    spec = ((0, 6, np.int64),) * 3
     for li, ladder in enumerate(ladders):
-        delta = consolidated(rng, 20, 32, dev, spec=spec)
-        out_trace = consolidated(rng, 10, 16, dev, spec=spec)
-        for fast, flag, q_cap, g_cap in ((True, False, 16, 512),
-                                         (True, True, 16, 512),
-                                         (False, True, 16, 512),
-                                         (True, True, 4, 8),
-                                         (False, True, 4, 8)):
-            ck.check("agg_ladder", f"ladder {li} fast {fast} gate {flag} "
-                     f"caps {q_cap}/{g_cap}", agg_kernel_checked,
-                     ck_mod.agg_ladder_plain, delta, 2, out_trace, ladder,
-                     Max(0), q_cap, g_cap, fast,
-                     torch.tensor(flag, device=dev))
+        yield (f"ladder {li}", ladder,
+               consolidated(rng, 20, 32, dev, spec=spec3),
+               consolidated(rng, 10, 16, dev, spec=spec3), mx, small)
+    net = ladders[3]
+    yield ("zero value columns",
+           [consolidated(rng, 40, 64, dev, nv=0, key_range=6),
+            consolidated(rng, 12, 16, dev, nv=0, key_range=6)],
+           consolidated(rng, 20, 32, dev, nv=0, key_range=6),
+           consolidated(rng, 10, 16, dev, key_range=6), (("count", 0),),
+           small)
+    yield ("out trace with several rows per key", net,
+           consolidated(rng, 20, 32, dev, key_range=3),
+           consolidated(rng, 14, 16, dev, key_range=3), mx, small)
+    yield ("zero-weight rows in the delta", *dead_row_case(rng, dev), mx,
+           small)
+    d = consolidated(rng, 20, 32, dev, key_range=6)
+    yield ("all retractions", net,
+           Batch(d.keys, d.vals, -d.weights.abs(), runs=d.runs),
+           consolidated(rng, 10, 16, dev, key_range=6), mx, small)
+    import torch
+
+    yield ("int32 keys and weights",
+           [narrowed(b, torch.int32) for b in net],
+           narrowed(consolidated(rng, 20, 32, dev, key_range=6),
+                    torch.int32),
+           narrowed(consolidated(rng, 10, 16, dev, key_range=6),
+                    torch.int32), mx, small)
+    yield ("90 levels (argument table)",
+           [consolidated(rng, 3, 4, dev, key_range=4) for _ in range(90)],
+           consolidated(rng, 12, 16, dev, key_range=4),
+           consolidated(rng, 8, 16, dev, key_range=4), mx, small)
+    for spec in ((("min", 0),), (("count", 0),), (("sum", 0),),
+                 (("avg", 0),), AGG_OPS):
+        yield (f"ops {[op for op, _ in spec]}",
+               [signed(b) for b in net],
+               signed(consolidated(rng, 20, 32, dev, key_range=6)),
+               consolidated(rng, 10, 16, dev, nv=len(spec), key_range=6),
+               spec, small[1:5])
+    # several tiles and blocks; four hot groups of ~1,250 rows each
+    hot = ((0, 2, np.int64),) * 2 + ((0, 100_000, np.int64),)
+    for n, cap, kr, row in ((3_000, 1 << 12, 60, None),
+                            (20_000, 1 << 15, 200, None),
+                            (5_000, 1 << 13, 2, hot)):
+        big = (True, False, cap, 64), (True, True, cap, 1 << 17), \
+            (False, True, cap // 4, 3_000), (True, True, 256, 100)
+        ladder = [consolidated(rng, k, c, dev, key_range=kr, spec=row)
+                  for k, c in ((6 * n, 8 * cap), (n, 2 * cap), (50, 64))]
+        d = consolidated(rng, n, cap, dev, key_range=kr, spec=row)
+        for spec in (mx, AGG_OPS):
+            yield (f"{n}-row delta, key range {kr}, "
+                   f"{[op for op, _ in spec]}", ladder, d,
+                   consolidated(rng, n // 2, cap, dev, nv=len(spec),
+                                key_range=kr), spec, big)
+
+
+def check_agg_ladder(ck: Checker, rng, dev) -> None:
+    """agg_ladder against agg_ladder_plain on ``agg_cases``, each with the
+    fast path's gate off and on, the general path and caps under the
+    unclamped totals (the small caps must overflow); the kernel must be
+    the call's one launch."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    overflow = 0
+    for name, ladder, delta, out_trace, spec, modes in agg_cases(rng, dev):
+        for fast, flag, q_cap, g_cap in modes:
+            got = ck.check("agg_ladder", f"{name}: fast {fast} gate {flag} "
+                           f"caps {q_cap}/{g_cap}", agg_kernel_checked,
+                           ck_mod.agg_ladder_plain, delta, 2, out_trace,
+                           ladder, SpecAgg(spec), q_cap, g_cap, fast,
+                           torch.tensor(flag, device=dev))
+            # flat outputs: qkeys, qlive, nq, ..., the gather total
+            nq, gtot = int(got[len(delta.keys) + 1]), int(got[-1])
+            overflow += nq > q_cap or gtot > g_cap
+    if not overflow:
+        fail("no agg_ladder case overflowed its caps: the clamp went "
+             "unchecked")
 
 
 def check_kernels(ck: Checker, dev) -> None:
@@ -911,13 +1059,7 @@ class Recorder:
             # a spine's level list changes after the tick: keep a snapshot
             self.best = (size, tuple(tuple(a) if isinstance(a, list) else a
                                      for a in args), kw, Recorder.query)
-        if self.name != "agg_ladder":
-            return self.orig(*args, **kw)
-        Recorder.paused += 1  # the chain is recorded, not its kernels
-        try:
-            return self.orig(*args, **kw)
-        finally:
-            Recorder.paused -= 1
+        return self.orig(*args, **kw)
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -1339,11 +1481,16 @@ def time_ms(fn, reps: int = 10) -> float:
 # drops its first one or two device events (seen on the H100: 8 of 10
 # one-kernel calls counted). Each session of device_ms starts with this
 # many throwaway kernels (torch.cuda._sleep's), which it does not count.
+# A session that lost all of them (seen once in a while) is run again, up
+# to PROFILER_TRIES times; every such session is listed in
+# ``profiler_retries``.
 PROFILER_SENTINELS = 4
 SENTINEL_KERNEL = "spin_kernel"
+PROFILER_TRIES = 3
+profiler_retries: list = []
 
 
-def device_ms(fn, reps: int = 10):
+def device_ms(fn, reps: int = 10, what: str = ""):
     """Device time of one call and the device operations (kernels and
     copies) it queues: torch.profiler's summed device time of everything
     that ``reps`` calls launched, and their count, over ``reps`` (None
@@ -1353,20 +1500,24 @@ def device_ms(fn, reps: int = 10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILER_SENTINELS):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events()
-           if ev.device_type == torch.autograd.DeviceType.CUDA]
-    seen = sum(SENTINEL_KERNEL in ev.name for ev in evs)
-    if not seen:
-        fail("the profiler dropped every sentinel kernel of a session: "
-             "the device times after them may be short")
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILER_SENTINELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if any(SENTINEL_KERNEL in ev.name for ev in evs):
+            break
+        profiler_retries.append(f"{what}: {len(evs)} device events")
+    else:
+        fail(f"the profiler dropped every sentinel kernel of "
+             f"{PROFILER_TRIES} sessions timing {what}: the device times "
+             f"after them may be short")
     evs = [ev for ev in evs if SENTINEL_KERNEL not in ev.name]
     total_us = sum(ev.device_time_total for ev in evs)
     return (total_us / 1e3 / reps if total_us else None), len(evs) / reps
@@ -1384,6 +1535,63 @@ def random_ids(args):
     ids = torch.randint(0, nseg, seg.shape, generator=gen,
                         device=seg.device, dtype=seg.dtype)
     return (spec, vals, w, ids, *args[4:])
+
+
+# the skewed gate-on variant of the aggregate chain's largest call
+SKEW_GROUPS = 4_000
+SKEW_DELTA_ROWS = 4  # a hot group's rows in the delta
+
+
+def skewed_history(args):
+    """An aggregate-chain call's arguments rebuilt on the card at the same
+    capacities, column dtypes, spec, q_cap and path, with the gate on:
+    every level full of SKEW_GROUPS hot groups (cap / SKEW_GROUPS rows of
+    each in every level, values interleaved across the levels), a delta
+    of SKEW_DELTA_ROWS rows a group (two retract the group's two oldest
+    rows of level 0, two are new) and an out trace of one row a group.
+    Few queries, each with a history of thousands of rows: the skew of
+    Nexmark's hot auctions pushed to the extreme. gather_cap stays the
+    call's; the caller raises it."""
+    import torch
+
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    delta, nk, out_trace, levels, agg, q_cap, g_cap, fast, _ = args
+    dev = delta.weights.device
+    groups, depth = SKEW_GROUPS, len(levels)
+
+    def col(like, x, live):
+        top = True if like.dtype == torch.bool else \
+            torch.iinfo(like.dtype).max
+        return torch.where(live, x, top).to(like.dtype)
+
+    def make(like, key, val, w):
+        live = w != 0
+        zero = torch.zeros_like(key)
+        return Batch(tuple(col(c, key if i == 0 else zero, live)
+                           for i, c in enumerate(like.keys)),
+                     tuple(col(c, val, live) for c in like.vals),
+                     w.to(like.weights.dtype), runs=(like.cap,))
+
+    ladder = []
+    for k, lvl in enumerate(levels):
+        i = torch.arange(lvl.cap, device=dev)
+        grp = i * groups // lvl.cap
+        first = (grp * lvl.cap + groups - 1) // groups  # the group's row 0
+        ladder.append(make(lvl, grp, (i - first) * depth + k,
+                           torch.ones_like(i)))
+    i = torch.arange(delta.cap, device=dev)
+    r = i % SKEW_DELTA_ROWS
+    new = 1 << 20  # above every history value
+    d = make(delta, i // SKEW_DELTA_ROWS,
+             torch.where(r < 2, r * depth, new + r),
+             torch.where(i < groups * SKEW_DELTA_ROWS,
+                         torch.where(r < 2, -1, 1), 0))
+    i = torch.arange(out_trace.cap, device=dev)
+    o = make(out_trace, i, torch.full_like(i, new),
+             (i < groups).to(torch.int64))
+    return (d, nk, o, type(levels)(ladder), agg, q_cap, g_cap, fast,
+            torch.ones((), dtype=torch.bool, device=dev))
 
 
 def _nbytes(t) -> int:
@@ -1522,6 +1730,73 @@ def agg_bound(args, out):
     return nbytes, ops
 
 
+def gate_on_variant(ck: Checker, label: str, call, plain, variants: dict,
+                    kw: dict, where: str) -> dict:
+    """Check and time one gate-on variant of the aggregate chain's call,
+    with gather_cap raised to the bucket of the rows it gathers, and list
+    it as "agg_ladder, <label>" in ``variants`` for the turns."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset.batch import bucket_cap
+
+    key = f"agg_ladder, {label}"
+    total = int(plain(*call)[9])
+    if total <= 0:
+        fail(f"{key} gathered no rows")
+    call = (*call[:6], bucket_cap(total), *call[7:])
+    variants[key] = ("agg_ladder", call, kw)
+    got = ck.check("agg_ladder", f"largest call, {label}, gather_cap "
+                   f"{call[6]} ({where})", agg_kernel_checked, plain, *call)
+    if int(got[-1]) != total:
+        fail(f"{key}: gathered {int(got[-1])} rows, the plain version "
+             f"{total}")
+    dev_ms, dev_ops = device_ms(lambda: ck_mod.agg_ladder(*call), what=key)
+    nbytes, ops = agg_bound(call, ck_mod.agg_ladder(*call))
+    return {"queries": int(got[call[1]].sum()),  # qlive, after the qkeys
+            "gather_cap": call[6],
+            "gathered_rows": total,
+            "ms": time_ms(lambda: ck_mod.agg_ladder(*call)),
+            "device_ms": dev_ms, "device_ops_per_call": dev_ops,
+            "plain_ms": time_ms(lambda: plain(*call), reps=3),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops / INT64_OPS_PER_S) * 1e3}
+
+
+def agg_graph_capture(args) -> dict:
+    """Whether a CUDA graph takes the aggregate kernel's cooperative
+    launch: the call warmed up on a side stream, captured in a
+    ``torch.cuda.CUDAGraph``, its outputs zeroed and the graph replayed,
+    then held against an eager call's outputs. A capture that raises is
+    reported (the finding); a replay that differs fails the run."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    want = [t.clone() for t in flat_outputs(ck_mod.agg_ladder(*args))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck_mod.agg_ladder(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out = flat_outputs(ck_mod.agg_ladder(*args))
+    except Exception as e:  # a refusal is what this check reports
+        torch.cuda.synchronize()
+        return {"captured": False, "error": f"{type(e).__name__}: {e}"[:600]}
+    for t in out:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, want)):
+        fail("agg_ladder replayed from a CUDA graph differs from the "
+             "eager call")
+    return {"captured": True, "replay_equal": True,
+            "replay_ms": time_ms(graph.replay),
+            "eager_ms": time_ms(lambda: ck_mod.agg_ladder(*args))}
+
+
 LADDER_NO_LIBRARY = (
     "none: torch.searchsorted finds each query's range in one level, but "
     "no one PyTorch call expands the ranges of a ladder of levels into "
@@ -1551,15 +1826,6 @@ def kernel_table(captured, runs, ck: Checker):
                 ck_mod.lex_probe_ladder_both_plain
         elif name == "agg_ladder":
             kern, plain = agg_kernel_checked, ck_mod.agg_ladder_plain
-            # the same call with the gate on: the gather returns rows
-            import torch
-
-            on = (*args[:8], torch.ones((), dtype=torch.bool,
-                                        device=args[0].device))
-            got = ck.check(name, f"largest call on the queries, gate on "
-                           f"(size {size}, {query})", kern, plain, *on)
-            if int(got[-1]) <= 0:
-                fail("agg_ladder with the gate on gathered no rows")
         else:
             kern = getattr(ck_mod, name)
             plain = getattr(ck_mod, name + "_plain")
@@ -1568,7 +1834,8 @@ def kernel_table(captured, runs, ck: Checker):
         if name == "agg_ladder":
             kern = ck_mod.agg_ladder  # timed without the launch check
         ms = time_ms(lambda: kern(*args, **kw))
-        kernel_device_ms, device_ops = device_ms(lambda: kern(*args, **kw))
+        kernel_device_ms, device_ops = device_ms(
+            lambda: kern(*args, **kw), what=name)
         plain_ms = time_ms(lambda: plain(*args, **kw))
         library_ms = None
         extra = {}
@@ -1596,6 +1863,17 @@ def kernel_table(captured, runs, ck: Checker):
             nbytes, ops = agg_bound(args, out)
             extra["gathered_rows"] = int(out[9])
             extra["gate"] = bool(args[8])
+            # the same call with the gate on, and on skewed groups (few
+            # queries with long histories), gather_cap at the bucket of
+            # the rows gathered so the history does not overflow
+            on = (*args[:8], torch.ones((), dtype=torch.bool,
+                                        device=args[0].device))
+            for label, key, call in (("gate on", "gate_on", on),
+                                     ("gate on, skewed", "gate_on_skewed",
+                                      skewed_history(args))):
+                extra[key] = gate_on_variant(ck, label, call,
+                                             plain, variants, kw,
+                                             f"size {size}, {query}")
             extra["shape"] = {"delta": args[0].cap,
                               "out_trace": args[2].cap,
                               "levels": [lvl.cap for lvl in args[3]],
@@ -1620,7 +1898,8 @@ def kernel_table(captured, runs, ck: Checker):
             variants[f"{name}, random ids"] = (name, rnd, kw)
             ck.check(name, f"largest call with random ids (size {size})",
                      kern, plain, *rnd, **kw)
-            rnd_dev = device_ms(lambda: kern(*rnd, **kw))
+            rnd_dev = device_ms(lambda: kern(*rnd, **kw),
+                                what=f"{name}, random ids")
             extra["random_ids"] = {
                 "ms": time_ms(lambda: kern(*rnd, **kw)),
                 "device_ms": rnd_dev[0], "device_ops_per_call": rnd_dev[1]}
@@ -1668,15 +1947,46 @@ def kernel_table(captured, runs, ck: Checker):
 # ---------------------------------------------------------------------------
 
 
+def _portable(x):
+    """``x`` with every tensor on the CPU, every list a tuple and every
+    dataclass instance of the package (a ``Batch``, an aggregator) a dict
+    ``{"__dataclass__": "module:name", "fields": {...}}``, which
+    :func:`_to` rebuilds with the classes of whichever tree it runs in."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, (tuple, list)):
+        return tuple(_portable(t) for t in x)
+    if isinstance(x, dict):
+        return {k: _portable(v) for k, v in x.items()}
+    cls = type(x)
+    if dataclasses.is_dataclass(x) and \
+            cls.__module__.startswith("dbsp_tpu_torch."):
+        return {"__dataclass__": f"{cls.__module__}:{cls.__qualname__}",
+                "fields": {f.name: _portable(getattr(x, f.name))
+                           for f in dataclasses.fields(x) if f.init}}
+    return x
+
+
 def _to(x, dev):
     """A (nested) tuple, list or dict of tensors and plain values, with
-    every tensor on ``dev`` and every list a tuple."""
+    every tensor on ``dev``, every list a tuple and every dataclass that
+    :func:`_portable` saved rebuilt."""
+    import importlib
+
     import torch
 
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     if isinstance(x, (tuple, list)):
         return tuple(_to(t, dev) for t in x)
+    if isinstance(x, dict) and "__dataclass__" in x:
+        module, name = x["__dataclass__"].split(":")
+        cls = getattr(importlib.import_module(module), name)
+        return cls(**{k: _to(v, dev) for k, v in x["fields"].items()})
     if isinstance(x, dict):
         return {k: _to(v, dev) for k, v in x.items()}
     return x
@@ -1719,7 +2029,8 @@ def time_calls(ck_mod, calls: dict, label: str) -> dict:
                 for t in got],
             "ms": time_ms(lambda: fn(*args, **kw))}
         out[name]["device_ms"], out[name]["device_ops_per_call"] = \
-            device_ms(lambda: fn(*args, **kw))
+            device_ms(lambda: fn(*args, **kw), what=f"{name} ({label})")
+    out["profiler_retries"] = list(profiler_retries)
     return out
 
 
@@ -1751,7 +2062,8 @@ def time_in_turns(calls: dict, others: list) -> list:
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     here = os.path.dirname(os.path.abspath(__file__))
-    saved = {name: _to(call, "cpu") for name, call in calls.items()
+    saved = {name: _portable(call) for name, call in calls.items()}
+    saved = {name: call for name, call in saved.items()
              if _plain_data(call)}
     path = os.path.join(os.path.abspath(others[0]), "timed_inputs.pt")
     torch.save(saved, path)
@@ -1858,6 +2170,10 @@ def main() -> int:
         # 7. the other trees' kernels against this tree's, in turns
         say(json.dumps({"turns": time_in_turns({**calls, **variants},
                                                 opts.parent)}))
+    # 8. whether a CUDA graph captures the aggregate kernel's launch
+    say(json.dumps({"agg_ladder_graph_capture":
+                    agg_graph_capture(captured["agg_ladder"][1])}))
+    say(json.dumps({"profiler_retries": profiler_retries}))
     say(json.dumps({"kernels": table}))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

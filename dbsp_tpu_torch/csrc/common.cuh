@@ -1,6 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels: the argument
-// block every launch takes, and the lexicographic binary search that
-// replaces the Pallas `_lex_search` (dbsp_tpu/zset/pallas_kernels.py:102).
+// block every launch takes, the lexicographic binary search that
+// replaces the Pallas `_lex_search` (dbsp_tpu/zset/pallas_kernels.py:102),
+// and the run-wise fold of the aggregate vocabulary that segment reduce
+// and the fused aggregate chain (agg_ladder.cu) share.
 //
 // A column reaches the ladder consumer as an int64 device pointer: its
 // wrappers widen narrower integer and bool columns first, as the Pallas
@@ -21,6 +23,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
 
 typedef long long i64;
@@ -185,10 +188,238 @@ __device__ __forceinline__ i64 wrap_mul(i64 x, i64 y) {
   return static_cast<i64>(static_cast<u64>(x) * static_cast<u64>(y));
 }
 
+__device__ __forceinline__ i64 wrap_add(i64 x, i64 y) {
+  return static_cast<i64>(static_cast<u64>(x) + static_cast<u64>(y));
+}
+
 __device__ __forceinline__ i64 wrap_neg(i64 x) {
   return static_cast<i64>(0ull - static_cast<u64>(x));
 }
 
+// Python's floor division (what `//` on int64 is in the reference)
+__device__ __forceinline__ i64 floor_div(i64 x, i64 y) {
+  i64 q = x / y;
+  if ((x % y != 0) && ((x < 0) != (y < 0))) --q;
+  return q;
+}
+
+// avg's finish: where(s >= 0, s // c, -((-s) // c)) for c >= 1, truncation
+// toward zero, with the reference's wrap at s == INT64_MIN kept exact
+__device__ __forceinline__ i64 avg_div(i64 sum, i64 c) {
+  return sum >= 0 ? sum / c : wrap_neg(floor_div(wrap_neg(sum), c));
+}
+
 static inline unsigned int blocks_for(i64 n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
+}
+
+// ---------------------------------------------------------------------------
+// The aggregate vocabulary and its run-wise fold
+// ---------------------------------------------------------------------------
+//
+// Per segment: count = sum max(w, 0); sum = sum v * max(w, 0); min/max over
+// the rows with w > 0, the op's identity where there are none; avg = sum /
+// max(count, 1) truncated toward zero; present = max over every row of
+// (w > 0), int64-min where the segment is empty.
+
+// the spec's opcodes (SEG_OPS in zset/cuda_kernels.py); WSUM is avg's
+// weight sum and NOP fills a pass's unused op
+enum Op { COUNT = 0, SUM = 1, MIN = 2, MAX = 3, AVG = 4, PRESENT = 5,
+          WSUM = 6, NOP = 7 };
+
+// One op of a pass: its code, source column, identity (the partial that
+// makes no atomic) and int64 output.
+struct OpRef {
+  int code;
+  int col;
+  i64 ident;
+  i64* out;
+};
+
+__device__ __forceinline__ bool reads_value(int code) {
+  return code == SUM || code == AVG || code == MIN || code == MAX;
+}
+
+// what one row adds to its run's partial
+__device__ __forceinline__ i64 contrib(const OpRef& op, i64 v, i64 w) {
+  const i64 wpos = w > 0 ? w : 0;
+  switch (op.code) {
+    case SUM:
+    case AVG:  // the sum now; the finish divides
+      return wrap_mul(v, wpos);
+    case MIN:
+    case MAX:
+      return w > 0 ? v : op.ident;
+    case PRESENT:
+      return w > 0;
+    case NOP:
+      return 0;
+    default:  // COUNT, WSUM
+      return wpos;
+  }
+}
+
+__device__ __forceinline__ i64 combine(int code, i64 x, i64 y) {
+  if (code == MIN) return x < y ? x : y;
+  if (code == MAX || code == PRESENT) return x > y ? x : y;
+  return wrap_add(x, y);
+}
+
+// fold one run's partial into its segment's output
+__device__ __forceinline__ void flush(const OpRef& op, i64 s, i64 x) {
+  if (x == op.ident) return;  // the atomic would change nothing
+  i64* p = op.out + s;
+  if (op.code == MIN)
+    atomicMin(p, x);
+  else if (op.code == MAX || op.code == PRESENT)
+    atomicMax(p, x);
+  else
+    atomicAdd(reinterpret_cast<u64*>(p), static_cast<u64>(x));
+}
+
+// consecutive rows a thread of the run-wise fold holds
+constexpr int RUN_ITEMS = 4;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr i64 DROPPED = -1;  // the id of a dropped row, and of rows past n
+constexpr i64 NO_ROW = -2;   // the id beside a tile's edge
+
+// rows r0 .. r0 + RUN_ITEMS - 1 of a column at its own width, widened;
+// rows at or past n read as 0. A whole stretch of int64 or int32 at a
+// 16-byte aligned address is one or two vector loads.
+__device__ __forceinline__ void load_rows(const void* p, int kind, i64 r0,
+                                          i64 n, i64 (&out)[RUN_ITEMS]) {
+  static_assert(RUN_ITEMS == 4, "the vector loads take four rows");
+  if (r0 + RUN_ITEMS <= n) {
+    if (kind == KIND_I64) {
+      const i64* q = static_cast<const i64*>(p) + r0;
+      if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+        const longlong2 x = reinterpret_cast<const longlong2*>(q)[0];
+        const longlong2 y = reinterpret_cast<const longlong2*>(q)[1];
+        out[0] = x.x, out[1] = x.y, out[2] = y.x, out[3] = y.y;
+        return;
+      }
+    } else if (kind == KIND_I32) {
+      const int* q = static_cast<const int*>(p) + r0;
+      if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+        const int4 x = reinterpret_cast<const int4*>(q)[0];
+        out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+        return;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RUN_ITEMS; ++i)
+    out[i] = r0 + i < n ? load_widened(p, kind, r0 + i) : 0;
+}
+
+// Shared memory of one fold_runs pass.
+template <int G, int THREADS>
+struct RunScan {
+  i64 warp_sum[G][THREADS / 32];
+  int warp_flag[THREADS / 32];
+};
+
+// One pass of the run-wise segmented reduction over a tile of
+// THREADS x RUN_ITEMS consecutive rows, for G ops at once. Each thread
+// holds the ids `id` of its RUN_ITEMS rows (DROPPED: the row is dropped;
+// a dropped row breaks a run) and the rows' contributions `c`, and knows
+// the ids of the rows just before and just after its stretch in the tile
+// (`before_id`, `after_id`; NO_ROW at the tile's edges). A thread folds
+// its rows run by run (a run: consecutive rows with one id) and flushes
+// the runs it holds whole at once. Its last run's partial goes through a
+// segmented scan, across the warp with __shfl_up_sync and across the
+// block's warps through shared memory, so that every thread learns the
+// partial of the run its stretch continues; the thread that holds a
+// run's last row of the tile flushes the run: one atomic per op per run
+// in a tile, not one per row, and a run cut by a tile edge makes one
+// atomic in each tile. Every thread of the block calls it (it syncs).
+template <int G, int THREADS>
+__device__ __forceinline__ void fold_runs(const i64 (&id)[RUN_ITEMS],
+                                          i64 before_id, i64 after_id,
+                                          const OpRef (&op)[G],
+                                          const i64 (&c)[G][RUN_ITEMS],
+                                          RunScan<G, THREADS>& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool multi = false;  // the stretch holds more than one run
+#pragma unroll
+  for (int i = 1; i < RUN_ITEMS; ++i) multi |= id[i] != id[i - 1];
+  // the stretch's first run continues the run before it
+  const bool cont = id[0] == before_id;
+  const i64 tail_id = id[RUN_ITEMS - 1];
+  // fold the stretch run by run: `head` is its first run's partial, `s`
+  // the current run's; runs held whole are written at once
+  i64 head[G], s[G];
+  bool broke = false;
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[g] = head[g] = c[g][0];
+#pragma unroll
+  for (int i = 1; i < RUN_ITEMS; ++i) {
+    if (id[i] == id[i - 1]) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = combine(op[g].code, s[g], c[g][i]);
+      continue;
+    }
+    if (!broke) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) head[g] = s[g];
+      broke = true;
+    } else if (id[i - 1] >= 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) flush(op[g], id[i - 1], s[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) s[g] = c[g][i];
+  }
+  // segmented inclusive scan of the last runs' partials over the warp: a
+  // flagged lane (a scan segment starts at its last run) starts anew
+  int flag = multi || !cont;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int f = __shfl_up_sync(FULL_MASK, flag, d);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const i64 x = __shfl_up_sync(FULL_MASK, s[g], d);
+      if (lane >= d && !flag) s[g] = combine(op[g].code, x, s[g]);
+    }
+    if (lane >= d) flag |= f;
+  }
+  // ... and over the block's warps: `carry` is the scan's value at the
+  // last lane of the warp before
+  __syncthreads();  // the previous pass has read warp_sum
+  if (lane == 31) {
+    sm.warp_flag[warp] = flag;
+#pragma unroll
+    for (int g = 0; g < G; ++g) sm.warp_sum[g][warp] = s[g];
+  }
+  __syncthreads();
+  i64 carry[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) carry[g] = op[g].ident;
+  for (int v = warp - 1; v >= 0; --v) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      carry[g] = combine(op[g].code, sm.warp_sum[g][v], carry[g]);
+    if (sm.warp_flag[v]) break;
+  }
+  // `before`: the partial of the run that holds the row before this
+  // stretch, up to that row
+  i64 before[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (!flag) s[g] = combine(op[g].code, carry[g], s[g]);
+    const i64 x = __shfl_up_sync(FULL_MASK, s[g], 1);
+    before[g] = lane == 0 ? carry[g] : x;
+  }
+  // the first run ends in this stretch when it holds another run
+  if (multi && id[0] >= 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      flush(op[g], id[0],
+            cont ? combine(op[g].code, before[g], head[g]) : head[g]);
+  }
+  // the last run ends here when the next row is another id
+  if (after_id != tail_id && tail_id >= 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) flush(op[g], tail_id, s[g]);
+  }
 }

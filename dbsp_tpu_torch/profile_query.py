@@ -40,7 +40,7 @@ PROFILE_TICKS = 3
 PORT_KERNELS = ("probe_ladder_kernel", "probe_kernel", "scan_tiles_kernel",
                 "add_tile_offsets_kernel", "total_kernel", "gather_kernel",
                 "rank_merge_kernel", "fill_kernel", "rows_kernel",
-                "fin_avg_kernel")
+                "fin_avg_kernel", "agg_ladder_kernel")
 
 
 def port_kernel(event: str):

@@ -10,11 +10,10 @@ PyTorch version — counterpart of ``dbsp_tpu/zset/pallas_kernels.py``.
   ``segment_reduce_pallas`` (:430);
 * ``rank_merge_scatter`` (``csrc/rank_merge.cu``) replaces
   ``rank_merge_scatter`` (:519);
-* ``agg_ladder`` replaces ``agg_ladder_pallas`` (:472), which has no
-  ``pallas_call`` of its own: the compiled aggregate's whole chain with
-  its gathers on ``csrc/ladder_consumer.cu`` and every segment reduction
-  on ``csrc/segment_reduce.cu``, as the Pallas version composes its two
-  kernels.
+* ``agg_ladder`` (``csrc/agg_ladder.cu``) replaces ``agg_ladder_pallas``
+  (:472), which has no ``pallas_call`` of its own: the compiled
+  aggregate's whole chain, which the Pallas version composes of its
+  gather and segment-reduce kernels, in one cooperative launch.
 
 Dispatch is by the device of the tensors a wrapper is given: on a CPU
 tensor it runs its plain version (``*_plain``, same module), on a CUDA
@@ -24,11 +23,12 @@ the other. Each launch adds one to ``LAUNCHES[name]``.
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
 shared library per source with a plain C interface, all sources at once,
 into ``dbsp_tpu_torch/_build/<hash of the sources>/``, and loaded with
-``ctypes``. The lex probe, segment reduce and the rank merge read (and
-the merge writes) every column at its own width, with its element type in
-the argument block (``_KINDS``). The ladder consumer takes int64 columns:
-its wrappers widen narrower integer and bool columns, as the Pallas
-wrappers do, and narrow the results back. Float columns are refused. A
+``ctypes``. The lex probe, segment reduce, the rank merge and the
+aggregate chain read (and the merge and the chain write) every column at
+its own width, with its element type in the argument block
+(``_KINDS``). The ladder consumer takes int64 columns: its wrappers widen
+narrower integer and bool columns, as the Pallas wrappers do, and narrow
+the results back. Float columns are refused. A
 launch's pointers and sizes travel in one argument block: by value as a
 kernel parameter up to ``ARGS_MAX`` slots, above that as a device table
 uploaded from pinned memory without a sync, so a ladder of any depth
@@ -38,12 +38,13 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -69,7 +70,7 @@ def reset_launches() -> None:
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("probe_ladder.cu", "ladder_consumer.cu", "segment_reduce.cu",
-           "rank_merge.cu")
+           "rank_merge.cu", "agg_ladder.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # slots of the by-value argument block, above which a launch takes a
@@ -150,6 +151,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "rank_merge"):
         lib.rank_merge.argtypes = block + [I, L, L, I, P]
         lib.rank_merge.restype = I
+    if hasattr(lib, "agg_ladder"):
+        lib.agg_ladder_scratch_elems.argtypes = [I, I, L, L, I]
+        lib.agg_ladder_scratch_elems.restype = L
+        lib.agg_ladder.argtypes = block + [I, I, I, I, L, L, L, L, L, I, I,
+                                           P, P, P]
+        lib.agg_ladder.restype = I
 
 
 def load_library(stem: str) -> ctypes.CDLL:
@@ -215,14 +222,20 @@ class _ArgBlock:
         if kind is None:
             raise ValueError(f"{self.what}: integer columns of 1, 2, 4 or 8 "
                              f"bytes and bool columns only, got {t.dtype}")
-        if t.get_device() != self.index:  # -1 off CUDA
-            raise ValueError(f"{self.what}: needs CUDA tensors on "
-                             f"{self.device}, got one on {t.device}")
-        if not t.is_contiguous():
-            t = t.contiguous()
-            self.keep.append(t)
-        self.slots[slot] = t.data_ptr()
+        self.ptrs(slot, (t,))
         return kind
+
+    def ptrs(self, slot0: int, cols: Sequence[torch.Tensor]) -> None:
+        """Put ``cols`` in the slots from ``slot0`` on as they are (made
+        contiguous if they are not); their ColKinds are the caller's."""
+        for i, t in enumerate(cols):
+            if t.get_device() != self.index:  # -1 off CUDA
+                raise ValueError(f"{self.what}: needs CUDA tensors on "
+                                 f"{self.device}, got one on {t.device}")
+            if not t.is_contiguous():
+                t = t.contiguous()
+                self.keep.append(t)
+            self.slots[slot0 + i] = t.data_ptr()
 
     def cols_at_width(self, slot0: int, cols: Sequence[torch.Tensor]) -> int:
         """Put ``cols``, which share one ColKind, in the slots from
@@ -729,19 +742,219 @@ def rank_merge_scatter_plain(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,
 
 
 # ---------------------------------------------------------------------------
-# Aggregate ladder: the compiled aggregate's chain over the two kernels above
+# Aggregate ladder: the compiled aggregate's whole chain in one launch
 # ---------------------------------------------------------------------------
 
+# most spec ops one call takes (csrc/agg_ladder.cu MAX_OPS)
+AGG_MAX_OPS = 16
 
-def _agg_ladder_stitched(delta, nk: int, out_trace, levels: Sequence, agg,
-                         q_cap: int, gather_cap: int, fast: bool, flag,
-                         gather, seg_reduce):
-    """The chain behind :func:`agg_ladder` and :func:`agg_ladder_plain`
-    (reference ``cursor._agg_ladder_stitched``), over the ladder gather
-    ``gather`` and the segment reduction ``seg_reduce`` it is given (the
-    CUDA wrappers or their plain versions). The run-boundary scan is done
-    once: ``_delta_groups_impl`` feeds both the unique-key compaction and
-    the fast path's segment ids."""
+
+def _agg_spec(delta, nk: int, out_trace, levels: Sequence, agg, q_cap: int,
+              gather_cap: int):
+    """The reduce spec of a call the fused kernel takes: the reference's
+    ``fusable`` conditions (``cursor.agg_ladder``) and the kernel's
+    limits. Raises ``ValueError`` with the reason otherwise."""
+    what = "agg_ladder"
+    try:
+        spec = tuple(agg.reduce_spec())
+    except NotImplementedError:
+        spec = ()
+    nv = len(delta.vals)
+    if not spec:
+        raise ValueError(f"{what}: the aggregator has no reduce spec")
+    if not levels:
+        raise ValueError(f"{what}: the trace has no levels")
+    if not 1 <= nk <= MAX_COLS:
+        raise ValueError(f"{what}: needs 1..{MAX_COLS} key columns, got {nk}")
+    if q_cap < 1 or gather_cap < 1:
+        raise ValueError(f"{what}: q_cap and gather_cap must be >= 1 (got "
+                         f"{q_cap}, {gather_cap})")
+    if len(spec) > AGG_MAX_OPS or nv > MAX_COLS:
+        raise ValueError(f"{what}: at most {AGG_MAX_OPS} ops and {MAX_COLS} "
+                         f"value columns (got {len(spec)}, {nv})")
+    if len(out_trace.vals) != len(spec):
+        raise ValueError(f"{what}: the out trace has {len(out_trace.vals)} "
+                         f"value columns, the spec {len(spec)} ops")
+    if any(len(lvl.vals) != nv for lvl in levels):
+        raise ValueError(f"{what}: the levels must share the delta's value "
+                         f"schema ({nv} columns)")
+    for op, col in spec:
+        if op not in SEG_OPS:
+            raise ValueError(f"{what}: unknown op {op!r}")
+        if op in ("sum", "min", "max", "avg") and not 0 <= col < nv:
+            raise ValueError(f"{what}: op {op!r} reads column {col} of {nv}")
+    return spec
+
+
+class _AggPlan(NamedTuple):
+    """What a launch of csrc/agg_ladder.cu takes that depends only on the
+    call's shapes and dtypes (:func:`_agg_plan`)."""
+
+    n_slots: int
+    template: tuple  # every slot but the columns' and outputs' pointers
+    n_outs: int  # outputs of the 10-tuple, flattened
+    # the outputs of one dtype lie side by side in the buffer: per dtype
+    # (dtype, first and last int64 element, its outputs' indices, their
+    # lengths and the padding after them)
+    regions: tuple
+    zero_d: tuple  # the outputs that are 0-d tensors
+    byte_offsets: tuple  # each output's place in the buffer
+    r0: int  # the slot of the first output's pointer
+    n_out: int  # int64 elements of the outputs
+    n_scratch: int  # int64 elements of the kernel's scratch
+    dims: tuple  # the launcher's integer arguments
+
+
+@functools.lru_cache(maxsize=64)
+def _agg_plan(dev: torch.device, nk: int, spec: tuple, fast: bool,
+              q_cap: int, gather_cap: int, m: int, ocap: int, caps: tuple,
+              dtypes: tuple) -> _AggPlan:
+    """The plan of a call whose delta, out trace and levels have the
+    column ``dtypes`` (keys, values, weights: the delta's, the out
+    trace's, then each level's), the row counts ``m``, ``ocap`` and
+    ``caps``. The slot layout is csrc/agg_ladder.cu's: the columns, the
+    level caps, the columns' kinds, the ops, the key sentinels, the old
+    outputs' identities, the outputs and their kinds."""
+    from dbsp_tpu_torch.operators.aggregate import _seg_out_dtype
+
+    what = "agg_ladder"
+    d_dt, o_dt, l_dt = dtypes[0], dtypes[1], dtypes[2]
+    if any(dt != l_dt for dt in dtypes[2:]):
+        raise ValueError(f"{what}: one column of every level must share a "
+                         f"dtype, got {dtypes[2:]}")
+    K, nd, no, nops = len(caps), len(d_dt), len(o_dt), len(spec)
+    nv = nd - nk - 1
+
+    def out_dtypes(cols):  # the reference's result dtype of each op
+        vals = tuple(torch.empty(0, dtype=d) for d in cols[nk:-1])
+        w = torch.empty(0, dtype=cols[-1])
+        return tuple(_seg_out_dtype(op, c, vals, w) for op, c in spec)
+
+    lad_dts, d_dts = out_dtypes(l_dt), out_dtypes(d_dt)
+    if any(op == "avg" and (ld, dd) != (torch.int64, torch.int64)
+           for (op, _), ld, dd in zip(spec, lad_dts, d_dts)):
+        # the kernel divides int64 sums: a narrower avg would differ
+        raise ValueError(f"{what}: avg needs an int64 result")
+    qn = min(q_cap, m)
+    nq = q_cap if fast else 0
+    shapes = (*((dt, qn) for dt in d_dt[:nk]), (torch.bool, qn),
+              (torch.int64, None), *((dt, q_cap) for dt in o_dt[nk:-1]),
+              (torch.bool, q_cap), *((dt, q_cap) for dt in lad_dts),
+              (torch.bool, q_cap), *((dt, nq) for dt in d_dts),
+              (torch.bool, nq), (torch.int64, None))
+    kinds = []
+    for dt in (*d_dt, *o_dt, *l_dt, *(dt for dt, _ in shapes)):
+        if dt not in _KINDS:
+            raise ValueError(f"{what}: integer columns of 1, 2, 4 or 8 "
+                             f"bytes and bool columns only, got {dt}")
+        kinds.append(_KINDS[dt])
+    ops = []
+    for op, col in spec:
+        minmax = op in ("min", "max")
+        ops += [SEG_OPS[op], col,
+                _seg_ident(op, d_dt[nk + col] if minmax else torch.int64),
+                _seg_ident(op, l_dt[nk + col] if minmax else torch.int64)]
+    template = ((0,) * (nd + no + nd * K) + caps + tuple(kinds[:nd + no + nd])
+                + tuple(ops)
+                + tuple(int(kernels.sentinel_scalar(dt)) for dt in d_dt[:nk])
+                + tuple(_seg_ident("max", dt) for dt in o_dt[nk:-1])
+                + (0,) * len(shapes) + tuple(kinds[nd + no + nd:]))
+    regions, byte_offsets, off = [], [0] * len(shapes), 0
+    for dtype in dict.fromkeys(dt for dt, _ in shapes):
+        idx = tuple(x for x, (dt, _) in enumerate(shapes) if dt == dtype)
+        sizes = tuple(shapes[x][1] or 1 for x in idx)
+        per, at = 8 // dtype.itemsize, 0
+        for x, n in zip(idx, sizes):
+            byte_offsets[x] = 8 * off + at * dtype.itemsize
+            at += n
+        n64 = max(1, -(-at // per))
+        regions.append((dtype, off, off + n64, idx, sizes, n64 * per - at))
+        off += n64
+    lib = load_library("agg_ladder")
+    with torch.cuda.device(dev):
+        n_scratch = lib.agg_ladder_scratch_elems(K, nops, m, q_cap,
+                                                 int(fast))
+    if n_scratch < 0:
+        raise RuntimeError(f"{what}: no block of the kernel fits on {dev}")
+    avg = any(op == "avg" for op, _ in spec)
+    return _AggPlan(len(template), template, len(shapes), tuple(regions),
+                    tuple(x for x, (_, n) in enumerate(shapes) if n is None),
+                    tuple(byte_offsets), len(template) - 2 * len(shapes), off,
+                    n_scratch, (K, nk, nv, nops, m, ocap, q_cap, qn,
+                                gather_cap, int(fast), int(avg)))
+
+
+def agg_ladder(delta, nk: int, out_trace, levels: Sequence, agg, q_cap: int,
+               gather_cap: int, fast: bool, flag: torch.Tensor):
+    """The compiled general aggregate's whole chain for one delta: unique
+    touched keys, previous outputs from the out trace, the touched groups'
+    ladder histories netted and reduced (only while the device bool
+    ``flag`` is on), and on the fast path the delta's own reduction.
+    Returns the reference's 10-tuple ``(qkeys, qlive, nq, old_vals,
+    old_present, lad_vals, lad_present, d_vals, d_present,
+    gather_total)``; ``nq`` and ``gather_total`` are the unclamped
+    requirements, ``d_vals`` and ``d_present`` None off the fast path. On
+    CUDA tensors it is one launch of ``csrc/agg_ladder.cu`` (its outputs
+    views of one buffer), for the calls the reference's fused backends
+    take (:func:`_agg_spec`; others raise ``ValueError``)."""
+    if _on_cpu(delta.weights):
+        return agg_ladder_plain(delta, nk, out_trace, levels, agg, q_cap,
+                                gather_cap, fast, flag)
+    what = "agg_ladder"
+    dev = _cuda_device(delta.weights, what)
+    spec = _agg_spec(delta, nk, out_trace, levels, agg, q_cap, gather_cap)
+    if flag.dtype != torch.bool or flag.numel() != 1 or flag.device != dev:
+        raise ValueError(f"{what}: the gate must be one bool on {dev}, got "
+                         f"{flag.dtype}{tuple(flag.shape)} on {flag.device}")
+    cols = [(*delta.keys[:nk], *delta.vals, delta.weights),
+            (*out_trace.keys[:nk], *out_trace.vals, out_trace.weights),
+            *((*lvl.keys[:nk], *lvl.vals, lvl.weights) for lvl in levels)]
+    plan = _agg_plan(dev, nk, spec, bool(fast), q_cap, gather_cap, delta.cap,
+                     out_trace.cap, tuple(lvl.cap for lvl in levels),
+                     tuple(tuple(c.dtype for c in cs) for cs in cols))
+    args = _ArgBlock(dev, plan.n_slots, what)
+    args.slots[:] = plan.template
+    # the columns' slots are consecutive: the delta's, the out trace's,
+    # then each column of every level (column-major)
+    nd = len(cols[0])
+    args.ptrs(0, (*cols[0], *cols[1],
+                  *(lc[c] for c in range(nd) for lc in cols[2:])))
+    buf = torch.empty((plan.n_out + plan.n_scratch,), dtype=torch.int64,
+                      device=dev)
+    base = buf.data_ptr()
+    args.slots[plan.r0:plan.r0 + plan.n_outs] = tuple(
+        base + off for off in plan.byte_offsets)
+    outs = [None] * plan.n_outs
+    for dtype, lo, hi, idx, sizes, pad in plan.regions:
+        parts = buf[lo:hi].view(dtype).split_with_sizes((*sizes, pad))
+        for x, part in zip(idx, parts):
+            outs[x] = part
+    for x in plan.zero_d:
+        outs[x] = outs[x][0]
+    args.launch(load_library("agg_ladder").agg_ladder, *plan.dims,
+                flag.data_ptr(), base + 8 * plan.n_out)
+    LAUNCHES[what] += 1
+    nops = len(spec)
+    qkeys, (qlive, nq), rest = tuple(outs[:nk]), outs[nk:nk + 2], \
+        outs[nk + 2:]
+    old_vals, lad_vals, d_vals = (tuple(rest[i * (nops + 1):
+                                              i * (nops + 1) + nops])
+                                  for i in range(3))
+    old_present, lad_present, d_present = rest[nops:3 * (nops + 1):nops + 1]
+    if not fast:
+        d_vals = d_present = None
+    return (qkeys, qlive, nq, old_vals, old_present, lad_vals, lad_present,
+            d_vals, d_present, rest[-1])
+
+
+def agg_ladder_plain(delta, nk: int, out_trace, levels: Sequence, agg,
+                     q_cap: int, gather_cap: int, fast: bool,
+                     flag: torch.Tensor):
+    """Plain version of :func:`agg_ladder`, and its oracle: the stitched
+    chain (reference ``cursor._agg_ladder_stitched``) over
+    :func:`gather_ladder_plain` and :func:`segment_reduce_plain`. The
+    run-boundary scan is done once: ``_delta_groups_impl`` feeds both the
+    unique-key compaction and the fast path's segment ids."""
     from dbsp_tpu_torch.operators import aggregate as A
 
     assert levels, "agg_ladder: trace has no levels"
@@ -754,54 +967,23 @@ def _agg_ladder_stitched(delta, nk: int, out_trace, levels: Sequence, agg,
     # previous outputs: the out trace holds one live row per present key,
     # so a q_cap expansion is exact
     oqrow, ovals, ow, _ = A._gather_level_impl(qkeys, qlive, out_trace,
-                                               q_cap, gather)
+                                               q_cap, gather_ladder_plain)
     old_vals, old_present = A._reduce_groups_impl(
         (oqrow, ovals, ow), A._TupleMax(len(agg.out_dtypes)), q_cap,
-        net=False, seg_reduce=seg_reduce)
+        net=False, seg_reduce=segment_reduce_plain)
 
     d_vals = d_present = None  # the general path never reads them
     if fast:
         seg = torch.where(anylive, seg_full, q_cap).to(torch.int32)
         d_vals, d_present = A.reduce_with_present(
-            agg, delta.vals, delta.weights, seg, q_cap + 1, seg_reduce)
+            agg, delta.vals, delta.weights, seg, q_cap + 1,
+            segment_reduce_plain)
         d_vals = tuple(o[:q_cap] for o in d_vals)
         d_present = d_present[:q_cap] > 0
-    part, gtot = gather(qkeys, qlive & flag, levels, gather_cap)
+    part, gtot = gather_ladder_plain(qkeys, qlive & flag, levels,
+                                     gather_cap)
     lad_vals, lad_present = A._reduce_groups_impl(
-        part, agg, q_cap, net=len(levels) > 1, seg_reduce=seg_reduce)
+        part, agg, q_cap, net=len(levels) > 1,
+        seg_reduce=segment_reduce_plain)
     return (qkeys, qlive, nq, old_vals, old_present, lad_vals, lad_present,
             d_vals, d_present, gtot.to(torch.int64))
-
-
-def agg_ladder(delta, nk: int, out_trace, levels: Sequence, agg, q_cap: int,
-               gather_cap: int, fast: bool, flag: torch.Tensor):
-    """The compiled general aggregate's whole chain for one delta
-    (:func:`_agg_ladder_stitched`): unique touched keys, previous
-    outputs from the out trace, the touched groups' ladder histories
-    netted and reduced, and on the fast path the delta's own reduction.
-    On CUDA tensors its two gathers (the out trace as a one-level ladder,
-    then the input ladder) are :func:`gather_ladder`
-    (``csrc/ladder_consumer.cu``) and its segment reductions (three on
-    the fast path, two on the general path) are :func:`segment_reduce`
-    (``csrc/segment_reduce.cu``); the run-boundary
-    compaction and the netting stay tensor ops, as they stay ``lax`` in
-    ``agg_ladder_pallas``. Returns the reference's 10-tuple."""
-    if _on_cpu(delta.weights):
-        return agg_ladder_plain(delta, nk, out_trace, levels, agg, q_cap,
-                                gather_cap, fast, flag)
-    _cuda_device(delta.weights, "agg_ladder")
-    out = _agg_ladder_stitched(delta, nk, out_trace, levels, agg, q_cap,
-                               gather_cap, fast, flag, gather_ladder,
-                               segment_reduce)
-    LAUNCHES["agg_ladder"] += 1
-    return out
-
-
-def agg_ladder_plain(delta, nk: int, out_trace, levels: Sequence, agg,
-                     q_cap: int, gather_cap: int, fast: bool,
-                     flag: torch.Tensor):
-    """Plain version of :func:`agg_ladder`: the same chain over
-    :func:`gather_ladder_plain` and :func:`segment_reduce_plain`."""
-    return _agg_ladder_stitched(delta, nk, out_trace, levels, agg, q_cap,
-                                gather_cap, fast, flag, gather_ladder_plain,
-                                segment_reduce_plain)

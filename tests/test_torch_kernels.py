@@ -10,15 +10,24 @@ full-capacity level, heterogeneous caps, a level of no rows) and seeded
 random rows; the data are integers, so equality is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from dbsp_tpu.operators.aggregate import Aggregator as RefAggregator
+from dbsp_tpu.operators.aggregate import Average as RefAverage
+from dbsp_tpu.operators.aggregate import Count as RefCount
+from dbsp_tpu.operators.aggregate import Max as RefMax
+from dbsp_tpu.operators.aggregate import Min as RefMin
+from dbsp_tpu.operators.aggregate import Sum as RefSum
 from dbsp_tpu.operators.aggregate import _seg_out_dtype
 from dbsp_tpu.zset import pallas_kernels
 from dbsp_tpu.zset.batch import Batch
+from dbsp_tpu_torch.operators.aggregate import Aggregator as TAggregator
 from dbsp_tpu_torch.zset import cuda_kernels
 from dbsp_tpu_torch.zset.batch import Batch as TBatch
 from test_pallas_kernels import _adversarial_ladders, _consolidated
@@ -492,16 +501,22 @@ def test_column_kinds_match_the_kernels():
         blk.col_at_width(0, torch.zeros(4, dtype=torch.int64))
 
 
-def test_segment_reduce_constants_match_the_kernel():
-    """The wrapper's opcodes and tile are csrc/segment_reduce.cu's, and
-    the kernel's extra ops (avg's weight sum, the no-op) take codes the
-    spec does not use."""
-    import re
+def _csrc(name: str) -> str:
     from pathlib import Path
 
-    src = (Path(cuda_kernels.__file__).resolve().parent.parent / "csrc" /
-           "segment_reduce.cu").read_text()
-    enum = re.search(r"enum Op \{([^}]*)\}", src).group(1)
+    return (Path(cuda_kernels.__file__).resolve().parent.parent / "csrc" /
+            name).read_text()
+
+
+def test_segment_reduce_constants_match_the_kernel():
+    """The wrapper's opcodes and tile are csrc/segment_reduce.cu's (its
+    opcodes are common.cuh's, which the fused aggregate shares), and the
+    kernel's extra ops (avg's weight sum, the no-op) take codes the spec
+    does not use."""
+    import re
+
+    src = _csrc("segment_reduce.cu")
+    enum = re.search(r"enum Op \{([^}]*)\}", _csrc("common.cuh")).group(1)
     codes = {name.lower(): int(v)
              for name, v in re.findall(r"(\w+) = (\d+)", enum)}
     assert {k: codes[k] for k in cuda_kernels.SEG_OPS} == \
@@ -510,6 +525,64 @@ def test_segment_reduce_constants_match_the_kernel():
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["THREADS"]) * int(consts["ITEMS"]) == \
         cuda_kernels.SEG_TILE
+
+
+def test_agg_ladder_constants_match_the_kernel():
+    """The fused aggregate's limits, opcodes and tile are
+    csrc/agg_ladder.cu's: the op and column limits the wrapper checks, the
+    opcodes of common.cuh it includes, and the run-wise fold's tile,
+    which it shares with segment reduce."""
+    import re
+
+    src = _csrc("agg_ladder.cu")
+    consts = dict(re.findall(r"constexpr int (\w+) = (\w+);", src))
+    assert int(consts["MAX_OPS"]) == cuda_kernels.AGG_MAX_OPS
+    assert consts["ITEMS"] == "RUN_ITEMS"
+    common = _csrc("common.cuh")
+    assert int(re.search(r"constexpr int RUN_ITEMS = (\d+);",
+                         common).group(1)) * int(consts["THREADS"]) == \
+        cuda_kernels.SEG_TILE
+    assert int(re.search(r"#define MAX_COLS (\d+)", common).group(1)) == \
+        cuda_kernels.MAX_COLS
+    enum = re.search(r"enum Op \{([^}]*)\}", common).group(1)
+    codes = {name.lower(): int(v)
+             for name, v in re.findall(r"(\w+) = (\d+)", enum)}
+    assert {k: codes[k] for k in cuda_kernels.SEG_OPS} == \
+        cuda_kernels.SEG_OPS
+    assert '#include "common.cuh"' in src and "enum Op" not in src
+
+
+def test_agg_ladder_refuses_what_the_kernel_does_not_take():
+    """The fused kernel takes the reference's ``fusable`` calls only: a
+    spec, key columns, caps of at least 1, one out-trace value column per
+    op, levels of the delta's value schema; anything else raises
+    ValueError with the reason (checked before any launch)."""
+    rng = np.random.default_rng(63)
+    ladder = [_port(b) for b in _netting_ladder(rng)]
+    delta = _port(_consolidated(rng, 20, 32, key_range=6))
+    out_trace = _port(_consolidated(rng, 10, 16, key_range=6))
+    ok = (delta, 2, out_trace, ladder, _PortSpec((("max", 0),)), 16, 64)
+    assert cuda_kernels._agg_spec(*ok) == (("max", 0),)
+
+    def refused(match, **kw):
+        names = ("delta", "nk", "out_trace", "levels", "agg", "q_cap",
+                 "gather_cap")
+        args = dict(zip(names, ok), **kw)
+        with pytest.raises(ValueError, match=match):
+            cuda_kernels._agg_spec(*(args[n] for n in names))
+
+    refused("no reduce spec", agg=TAggregator())
+    refused("no levels", levels=[])
+    refused("key columns", nk=0)
+    refused("must be >= 1", q_cap=0)
+    refused("must be >= 1", gather_cap=0)
+    refused("value columns, the spec 2 ops",
+            agg=_PortSpec((("max", 0), ("count", 0))))
+    refused("value schema", levels=[*ladder, _port(_cap0(nv=2))])
+    refused("reads column 3", agg=_PortSpec((("sum", 3),)))
+    refused("unknown op", agg=_PortSpec((("median", 0),)))
+    refused("at most", agg=_PortSpec((("count", 0),) *
+                                     (cuda_kernels.AGG_MAX_OPS + 1)))
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -556,15 +629,95 @@ def _netting_ladder(rng):
     return [base, back, again]
 
 
+def _narrow_batch(b: Batch, key_dtype, w_dtype) -> Batch:
+    """``b`` with its key columns and weights stored at narrower dtypes
+    (dead rows keep the narrow dtype's sentinel)."""
+    live = np.asarray(b.weights) != 0
+    keys = tuple(jnp.asarray(np.where(live, np.asarray(k),
+                                      np.iinfo(key_dtype).max)
+                             .astype(key_dtype)) for k in b.keys)
+    return Batch(keys, b.vals, jnp.asarray(np.asarray(b.weights)
+                                           .astype(w_dtype)), runs=b.runs)
+
+
+def _rows_batch(cols, w, nk: int, cap: int) -> Batch:
+    """A batch of exactly these sorted rows (int64 columns, key columns
+    first) and weights, sentinel-padded to ``cap`` and not consolidated:
+    a zero-weight row stays where it is."""
+    n = len(w)
+
+    def pad(c, fill):
+        return jnp.asarray(np.concatenate([np.asarray(c, np.int64),
+                                           np.full(cap - n, fill, np.int64)]))
+
+    top = np.iinfo(np.int64).max
+    return Batch(tuple(pad(c, top) for c in cols[:nk]),
+                 tuple(pad(c, top) for c in cols[nk:]), pad(w, 0),
+                 runs=(cap,))
+
+
+def _dead_row_case(rng):
+    """(ladder, delta, out_trace) whose delta holds a zero-weight row
+    between two live rows of one key, and a zero-weight row just ahead of
+    a key's first live row (that row then heads no group: its keys equal
+    the row before's)."""
+    k0 = [1, 1, 2, 2, 2, 3, 4, 4]
+    k1 = [1, 1, 5, 5, 5, 0, 2, 2]
+    v = [4, 7, 1, 3, 8, 2, 5, 6]
+    w = [0, 2, 1, 0, -1, 3, 2, 0]
+    delta = _rows_batch([k0, k1, v], w, 2, 16)
+    level = _consolidated(rng, 30, 64, key_range=6)
+    extra = Batch.from_columns([np.array(k0[1:6], np.int64),
+                                np.array(k1[1:6], np.int64)],
+                               [np.array([9, 9, 9, 9, 9], np.int64)],
+                               np.array([1, 2, -1, 1, 3], np.int64), cap=8)
+    out_trace = Batch.from_columns([np.array([1, 2, 2, 3], np.int64),
+                                    np.array([1, 5, 5, 0], np.int64)],
+                                   [np.array([40, 10, 12, 5], np.int64)],
+                                   np.array([1, 1, -1, 1], np.int64), cap=8)
+    return [level, extra], delta, out_trace
+
+
 def _agg_cases(rng):
-    """(ladder, delta, out_trace): the adversarial ladders, a ladder with
-    multi-level netting and one with a cap-0 level."""
+    """(name, ladder, delta, out_trace, aggregator name): the adversarial
+    ladders, a ladder with multi-level netting and one with a cap-0
+    level, then the cases the fused kernel finds hard: zero value columns
+    (a count), an out trace with several rows per key, a delta with a
+    zero-weight row inside a group, an all-retraction delta, int32 keys
+    and weights, and a ladder deep enough (90 levels) that the argument
+    block exceeds the 448 by-value slots."""
     ladders = list(_adversarial_ladders(rng))
     ladders.append(_netting_ladder(rng))
     ladders.append([ladders[0][0], _cap0(), ladders[0][2]])
-    for ladder in ladders:
-        yield (ladder, _consolidated(rng, 20, 32, key_range=6),
-               _consolidated(rng, 10, 16, key_range=6, allow_neg=False))
+    for i, ladder in enumerate(ladders):
+        yield (f"ladder {i}", ladder, _consolidated(rng, 20, 32, key_range=6),
+               _consolidated(rng, 10, 16, key_range=6, allow_neg=False),
+               "max")
+    yield ("zero value columns",
+           [_consolidated(rng, 40, 64, nv=0, key_range=6),
+            _consolidated(rng, 12, 16, nv=0, key_range=6)],
+           _consolidated(rng, 20, 32, nv=0, key_range=6),
+           _consolidated(rng, 10, 16, key_range=6, allow_neg=False), "count")
+    yield ("out trace with several rows per key", ladders[3],
+           _consolidated(rng, 20, 32, key_range=3),
+           _consolidated(rng, 14, 16, key_range=3), "max")
+    yield ("zero-weight rows in the delta", *_dead_row_case(rng), "max")
+    delta = _consolidated(rng, 20, 32, key_range=6)
+    yield ("all retractions", ladders[3],
+           Batch(delta.keys, delta.vals, -jnp.abs(delta.weights),
+                 delta.runs),
+           _consolidated(rng, 10, 16, key_range=6, allow_neg=False), "max")
+    yield ("int32 keys and weights",
+           [_narrow_batch(b, np.int32, np.int32) for b in ladders[3]],
+           _narrow_batch(_consolidated(rng, 20, 32, key_range=6), np.int32,
+                         np.int32),
+           _narrow_batch(_consolidated(rng, 10, 16, key_range=6,
+                                       allow_neg=False), np.int32,
+                         np.int32), "max")
+    yield ("90 levels (argument table)",
+           [_consolidated(rng, 3, 4, key_range=4) for _ in range(90)],
+           _consolidated(rng, 12, 16, key_range=4),
+           _consolidated(rng, 8, 16, key_range=4, allow_neg=False), "max")
 
 
 def _flat(out):
@@ -578,43 +731,124 @@ def _flat(out):
     return flat
 
 
-# (mode, q_cap, gather_cap): the fast path (Max) with its gate off and on,
-# the general path, and caps below the queries and the gather totals
+@dataclasses.dataclass(frozen=True)
+class _PortSpec(TAggregator):
+    """A spec-only aggregator of the port: ``spec`` as given, int64
+    outputs."""
+
+    spec: tuple = (("max", 0),)
+
+    def reduce_spec(self):
+        return self.spec
+
+    @property
+    def out_dtypes(self):
+        return (torch.int64,) * len(self.spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class _RefSpec(RefAggregator):
+    """The same on the reference's side, for the specs no built-in
+    aggregator of the reference has."""
+
+    spec: tuple = (("max", 0),)
+
+    def reduce_spec(self):
+        return self.spec
+
+    @property
+    def out_dtypes(self):
+        return (jnp.int64,) * len(self.spec)
+
+
+ALL_OPS = (("count", 0), ("sum", 0), ("min", 0), ("max", 0), ("avg", 0),
+           ("present", 0))
+# aggregator name -> (the port's spec, the reference's aggregator)
+SPEC_AGGS = {
+    "max": ((("max", 0),), RefMax(0)),
+    "min": ((("min", 0),), RefMin(0)),
+    "count": ((("count", 0),), RefCount()),
+    "sum": ((("sum", 0),), RefSum(0)),
+    "avg": ((("avg", 0),), RefAverage(0)),
+    "all six ops": (ALL_OPS, _RefSpec(ALL_OPS)),
+}
+
+
+def _assert_agg_equal(ladder, delta, out_trace, agg, nk, q_cap, gather_cap,
+                      fast, flag, what):
+    """``cuda_kernels.agg_ladder`` (its plain version, on the CPU) against
+    ``agg_ladder_pallas`` on the same inputs, every leaf exactly; returns
+    the port's 10-tuple."""
+    spec, ref_agg = SPEC_AGGS[agg]
+    want = pallas_kernels.agg_ladder_pallas(
+        delta, nk, out_trace, ladder, ref_agg, q_cap, gather_cap, fast,
+        jnp.asarray(flag))
+    got = cuda_kernels.agg_ladder(
+        _port(delta), nk, _port(out_trace), [_port(b) for b in ladder],
+        _PortSpec(spec), q_cap, gather_cap, fast, torch.tensor(flag))
+    g, w = _flat(got), _flat(want)
+    assert len(g) == len(w), what
+    for i, (a, b) in enumerate(zip(g, w)):
+        if b is None:
+            assert a is None, f"{what} leaf {i}"
+        else:
+            _assert_same(a, b, f"{what} leaf {i}")
+    return got
+
+
+# (mode, flag, q_cap, gather_cap): the fast path with its gate off and on,
+# the general path, and caps below the queries and the gather totals, with
+# the gate on and off
 AGG_MODES = [("fast", False, 16, 512), ("fast", True, 16, 512),
              ("general", True, 16, 512), ("fast", True, 4, 8),
-             ("general", True, 4, 8)]
+             ("general", True, 4, 8), ("fast", False, 4, 8)]
 
 
 @pytest.mark.parametrize("mode,flag,q_cap,gather_cap", AGG_MODES)
 def test_agg_ladder_plain_equals_pallas(pallas_interpret, mode, flag, q_cap,
                                         gather_cap):
-    from dbsp_tpu.operators.aggregate import Max
-    from dbsp_tpu_torch.operators.aggregate import Max as TMax
-
-    fast = mode == "fast"
     rng = np.random.default_rng(60)
     cases = 0
     overflow = 0
-    for ladder, delta, out_trace in _agg_cases(rng):
-        want = pallas_kernels.agg_ladder_pallas(
-            delta, 2, out_trace, ladder, Max(0), q_cap, gather_cap, fast,
-            jnp.asarray(flag))
-        got = cuda_kernels.agg_ladder(
-            _port(delta), 2, _port(out_trace), [_port(b) for b in ladder],
-            TMax(0), q_cap, gather_cap, fast, torch.tensor(flag))
-        g, w = _flat(got), _flat(want)
-        assert len(g) == len(w) == 11
-        for i, (a, b) in enumerate(zip(g, w)):
-            if b is None:
-                assert a is None, f"case {cases} leaf {i}"
-            else:
-                _assert_same(a, b, f"case {cases} leaf {i}")
+    for name, ladder, delta, out_trace, agg in _agg_cases(rng):
+        got = _assert_agg_equal(ladder, delta, out_trace, agg, 2, q_cap,
+                                gather_cap, mode == "fast", flag,
+                                f"case {name}")
         # nq and the gather total are the unclamped requirements
         overflow += int(got[2]) > q_cap or int(got[9]) > gather_cap
         cases += 1
-    assert cases == 5
+    assert cases == 11
     if q_cap == 4:
         assert overflow, "the small caps must overflow for the check to bite"
+
+
+@pytest.mark.parametrize("agg", list(SPEC_AGGS))
+def test_agg_ladder_spec_ops_plain_equals_pallas(pallas_interpret, agg):
+    """Every op of the spec vocabulary (count, sum, min, max, avg,
+    present) through a spec-only aggregator of the port, against the
+    reference's Max, Min, Count, Sum and Average and a spec-only
+    aggregator: signed values (avg truncates toward zero), a netting
+    ladder, the fast and the general path, roomy and overflowing caps."""
+    rng = np.random.default_rng(62)
+    ladder = _netting_ladder(rng)
+    nops = len(SPEC_AGGS[agg][0])
+
+    def signed(b):  # values shifted below zero, sentinels kept
+        live = np.asarray(b.weights) != 0
+        vals = tuple(jnp.asarray(np.where(live, np.asarray(v) - 3,
+                                          np.asarray(v))) for v in b.vals)
+        return Batch(b.keys, vals, b.weights, runs=b.runs)
+
+    ladder = [signed(b) for b in ladder]
+    delta = signed(_consolidated(rng, 20, 32, key_range=6))
+    out_trace = _consolidated(rng, 10, 16, nv=nops, key_range=6,
+                              allow_neg=False)
+    for fast, flag, q_cap, gather_cap in ((True, True, 16, 512),
+                                          (False, True, 4, 8),
+                                          (True, False, 4, 8)):
+        _assert_agg_equal(ladder, delta, out_trace, agg, 2, q_cap,
+                          gather_cap, fast, flag,
+                          f"{agg} fast {fast} caps {q_cap}/{gather_cap}")
 
 
 def test_agg_ladder_fast_gate_masks_the_gather():
@@ -623,7 +857,7 @@ def test_agg_ladder_fast_gate_masks_the_gather():
     from dbsp_tpu_torch.operators.aggregate import Max as TMax
 
     rng = np.random.default_rng(61)
-    ladder, delta, out_trace = next(_agg_cases(rng))
+    _, ladder, delta, out_trace, _ = next(_agg_cases(rng))
     args = (_port(delta), 2, _port(out_trace), [_port(b) for b in ladder],
             TMax(0), 16, 512, True)
     assert int(cuda_kernels.agg_ladder(*args, torch.tensor(False))[9]) == 0
