@@ -13,7 +13,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
              dead and all-sentinel queries, duplicates, full capacity,
              total > out_cap, no gathered columns, cap-0 levels, ladders
              wider than the by-value argument block, empty /
-             retraction-only / out-of-range segments; the fused
+             retraction-only / out-of-range segments; the ladder join
+             and gather (each call one call of csrc/ladder_consumer.cu
+             and of nothing else) also on key, value, weight and query
+             columns of every width, hot keys whose ranges span many
+             expansion tiles, ladders where every range is empty, and
+             out_cap at, under and over a tile's edge; the fused
              aggregate chain as the call's one launch, on its fast path
              with the gate off and on and its general path, with caps
              under the unclamped totals, on netting ladders, a cap-0
@@ -68,7 +73,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
              it: ``ms`` per call by CUDA events (host gaps between
              launches included), ``device_ms`` the kernel's device time
              alone by torch.profiler, and the device operations a call
-             queues; segment reduce also on the same call with uniformly
+             queues, whole and by name; the ladder join's and gather's
+             call also with every query dead and with out_cap 1 (the
+             time without the searches, and without the slots), and
+             their main-path call with the most queries (the join's:
+             q4's bids against its auctions, the matched rows' expansion);
+             segment reduce also on the same call with uniformly
              random ids, the aggregate chain also on its call with the
              gate on and on a skewed rebuild of that call (4,000 hot
              groups, each with ~1,500 history rows: few queries, long
@@ -84,9 +94,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
              other trees, this, this, the others in reverse), each turn a
              process of its own, after one timing in this process; the
              outputs are checked equal across the turns;
-8. graph   — the aggregate kernel's cooperative launch at its largest
-             main-path call captured in a CUDA graph and replayed: equal
-             to the eager call, or the capture's refusal reported.
+8. graph   — the largest main-path call of the aggregate kernel, of the
+             ladder join and of the ladder gather, each captured in a
+             CUDA graph and replayed: equal to the eager call, or the
+             capture's refusal reported.
 
 Output: the phase summaries, then one line {"kernels": [...]}, then the
 nvidia-smi line, then the last line
@@ -117,6 +128,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 # two 32-bit instructions. The kernels' operations are int64 compares.
 INT64_OPS_PER_S = 132 * 64 * 1.98e9 / 2
 
+
+def bound(nbytes, ops) -> tuple:
+    """The least ms for ``nbytes`` moved and ``ops`` int64 operations, and
+    which of the two sets it ("bytes" or "operations")."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT64_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
 REPLACES = {
     "lex_probe_ladder": "dbsp_tpu/zset/pallas_kernels.py:145",
     "join_ladder": "dbsp_tpu/zset/pallas_kernels.py:338",
@@ -133,6 +153,9 @@ SOURCE = {
     "rank_merge": "dbsp_tpu_torch/csrc/rank_merge.cu",
     "agg_ladder": "dbsp_tpu_torch/csrc/agg_ladder.cu",
 }
+# the entry point that calls a kernel, where it is not the kernel's name
+ENTRY = {"lex_probe_ladder": "lex_probe_ladder_both",  # both sides
+         "rank_merge": "rank_merge_scatter"}
 # the queries driven on the card, in order, and the kernels each one's
 # path must launch
 QUERIES = {
@@ -603,7 +626,7 @@ def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
                            np.ones(3, np.int64), cap=4, device=dev)
     ladder = [lvl, empty_level(dev, nk=1)]
     got = ck.check("join_ladder", "cap-0 level, smallest input",
-                   ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                   JOIN, ck_mod.join_ladder_plain,
                    d.keys, d.weights, ladder, 1, 8)
     # flat outputs: qrow, the level's value column, w, valid, total
     if got[1][:3].tolist() != [10, 30, 0] or \
@@ -612,17 +635,17 @@ def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
              f"w {got[2][:3].tolist()}, total {int(got[-1])}; want "
              "[10, 30, 0], [2, -1, 0], 2")
     ck.check("gather_ladder", "cap-0 level, smallest input",
-             ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+             GATHER, ck_mod.gather_ladder_plain,
              d.keys, d.weights != 0, ladder, 8)
     for li, ladder in enumerate(adversarial_ladders(rng, dev)):
         ladder = [ladder[0], empty_level(dev), *ladder[1:]]
         delta = consolidated(rng, 20, 32, dev)
         for out_cap in (1024, 4):
             ck.check("join_ladder", f"ladder {li} + cap-0 level {out_cap}",
-                     ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                     JOIN, ck_mod.join_ladder_plain,
                      delta.keys, delta.weights, ladder, 2, out_cap)
             ck.check("gather_ladder", f"ladder {li} + cap-0 level "
-                     f"{out_cap}", ck_mod.gather_ladder,
+                     f"{out_cap}", GATHER,
                      ck_mod.gather_ladder_plain, delta.keys,
                      delta.weights != 0, ladder, out_cap)
     # wide ladders: 200 levels of two-column rows for the probe
@@ -640,28 +663,142 @@ def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
     delta = consolidated(rng, 60, 64, dev, nk=1, spec=bids)
     for out_cap in (1 << 14, 64):
         ck.check("join_ladder", f"100 levels (707 slots) out_cap {out_cap}",
-                 ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                 JOIN, ck_mod.join_ladder_plain,
                  delta.keys, delta.weights, wide, 1, out_cap)
         ck.check("gather_ladder", f"100 levels (707 slots) {out_cap}",
-                 ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                 GATHER, ck_mod.gather_ladder_plain,
                  delta.keys, delta.weights != 0, wide, out_cap)
     if ck_mod._ArgBlock(dev, 606, "check").by_value:
         fail("a 606-slot launch did not take the device table")
 
 
-def agg_kernel_checked(*args):
-    """``cuda_kernels.agg_ladder``, failing unless the call launched the
-    fused kernel once and no gather or segment-reduce kernel."""
+def launch_checked(name: str, entry: str | None = None):
+    """``cuda_kernels.<entry>`` (``entry`` defaults to ``name``), failing
+    unless the call launched kernel ``name`` once and no other kernel."""
+    def call(*args, **kw):
+        from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+        before = dict(ck_mod.LAUNCHES)
+        out = getattr(ck_mod, entry or name)(*args, **kw)
+        got = {k: n - before[k] for k, n in ck_mod.LAUNCHES.items()
+               if n != before[k]}
+        if got != {name: 1}:
+            fail(f"{entry or name} launched {got}, want {{{name!r}: 1}}")
+        return out
+
+    return call
+
+
+JOIN, GATHER, AGG = (launch_checked(name) for name in
+                     ("join_ladder", "gather_ladder", "agg_ladder"))
+
+
+def narrow_ladder(rng, dev, key_dts, val_dts, w_dt, caps, key_range,
+                  hot=None):
+    """Levels of random consolidated rows whose key columns, value columns
+    and weights are stored as ``key_dts``, ``val_dts`` and ``w_dt`` (dead
+    rows keep each dtype's sentinel); ``hot`` = (key, rows per level)
+    adds that many rows of one key to every level."""
+    import torch
+
+    from dbsp_tpu_torch.zset import kernels
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    nk = len(key_dts)
+    spec = ((0, key_range, np.int64),) * nk + \
+        ((-100, 100, np.int64),) * len(val_dts)
+    out = []
+    for n, cap in caps:
+        extra = ()
+        if hot is not None:
+            extra = [np.full(hot[1], hot[0], np.int64) for _ in range(nk)] + \
+                [rng.integers(-100, 100, hot[1]) for _ in val_dts]
+        b = consolidated(rng, n, cap, dev, nk=nk, spec=spec, extra=extra)
+        live = b.weights != 0
+
+        def cast(c, dt):
+            return torch.where(live, c, 0).to(dt).masked_fill(
+                ~live, kernels.sentinel_scalar(dt))
+
+        out.append(Batch(tuple(cast(c, dt) for c, dt in zip(b.keys, key_dts)),
+                         tuple(cast(c, dt) for c, dt in zip(b.vals, val_dts)),
+                         b.weights.to(w_dt), runs=b.runs))
+    return out
+
+
+def check_consumer_cases(ck: Checker, rng, dev) -> None:
+    """The ladder consumer (csrc/ladder_consumer.cu) on narrow columns of
+    every width, hot keys whose ranges span many expansion tiles, ladders
+    where every range is empty (total 0), and out_cap below the total at
+    and around a tile's edge; each call its one launch."""
+    import torch
+
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
-    before = dict(ck_mod.LAUNCHES)
-    out = ck_mod.agg_ladder(*args)
-    got = {k: ck_mod.LAUNCHES[k] - before[k]
-           for k in ("agg_ladder", "gather_ladder", "segment_reduce")}
-    want = {"agg_ladder": 1, "gather_ladder": 0, "segment_reduce": 0}
-    if got != want:
-        fail(f"agg_ladder launched {got}, want {want}")
-    return out
+    tile = ck_mod.LADDER_TILE
+
+    def both(what, ladder, delta_keys, delta_w, nk, out_caps, qhi=None):
+        totals = []
+        for out_cap in out_caps:
+            got = ck.check("join_ladder", f"{what} out_cap {out_cap}", JOIN,
+                           ck_mod.join_ladder_plain, delta_keys, delta_w,
+                           ladder, nk, out_cap)
+            totals.append(int(got[-1]))
+            for mode, kw in (("equal", {}), ("range", {"qhi_keys": qhi}),
+                             ("gather_keys", {"gather_keys": nk})):
+                if mode == "range" and qhi is None:
+                    continue
+                ck.check("gather_ladder", f"{what} {mode} out_cap {out_cap}",
+                         GATHER, ck_mod.gather_ladder_plain, delta_keys,
+                         delta_w != 0, ladder, out_cap, **kw)
+        return totals
+
+    i8, i16, i32, i64 = torch.int8, torch.int16, torch.int32, torch.int64
+    u8, b1 = torch.uint8, torch.bool
+    # narrow columns: (keys, values, level weights, query keys, delta w)
+    for key_dts, val_dts, w_dt, q_dts, dw_dt, kr in (
+            ((i32,), (i8, i16, i32, b1, u8), i32, (i32,), i16, 40),
+            ((i16, i16), (i64,), i64, (i64, i64), i64, 9),
+            ((i8,), (b1, i8), i8, (i8,), i8, 30),
+            ((b1, i64), (i16, u8), i16, (b1, i32), i32, 2)):
+        ladder = narrow_ladder(rng, dev, key_dts, val_dts, w_dt,
+                               ((60, 64), (20, 32), (5, 8)), kr)
+        d = narrow_ladder(rng, dev, q_dts, (), dw_dt, ((25, 32),), kr)[0]
+        qhi = tuple(torch.clamp(k.to(i64) + torch.from_numpy(
+            rng.integers(-1, 3, d.cap)).to(dev), max=torch.iinfo(k.dtype).max
+            if k.dtype != b1 else 1).to(k.dtype) for k in d.keys)
+        what = (f"keys {[str(t)[6:] for t in key_dts]} vals "
+                f"{[str(t)[6:] for t in val_dts]} w {str(w_dt)[6:]} queries "
+                f"{[str(t)[6:] for t in q_dts]} dw {str(dw_dt)[6:]}")
+        both(what, ladder, d.keys, d.weights, len(key_dts), (512, 5), qhi)
+    # hot keys: one key with 9,000 and 3,000 rows in two levels, so its
+    # ranges span ~12 tiles; out_cap at, under and over tile edges
+    bids = bids_row(300)
+    ladder = [narrow_ladder(rng, dev, (i64,), (i64, i64, i32, i64), i64,
+                            ((n, cap),), 300, hot=(7, hot))[0]
+              for n, cap, hot in ((6_000, 1 << 14, 9_000),
+                                  (2_000, 1 << 13, 3_000))]
+    # three live queries of the hot key (distinct rows, so none cancels)
+    d = consolidated(rng, 400, 512, dev, nk=1, spec=bids,
+                     extra=[np.full(3, 7, np.int64)] +
+                     [np.arange(3).astype(dt) for _, _, dt in bids[1:]])
+    total = int(ck_mod.join_ladder_plain(d.keys, d.weights, ladder, 1,
+                                         1 << 16)[4])
+    if total < 4 * tile:
+        fail(f"the hot-key ladder matched only {total} rows")
+    qhi = (d.keys[0] + 2,)
+    both(f"hot key (total {total})", ladder, d.keys, d.weights, 1,
+         (1 << 16, 3 * tile, 3 * tile - 1, 3 * tile + 1, tile, total - 1,
+          total, total + 1), qhi)
+    # every range empty: queries outside the levels' keys, then all dead
+    far = consolidated(rng, 40, 64, dev, nk=1, spec=((1000, 2000, np.int64),
+                                                     *bids[1:]))
+    for what, dw in (("queries past every key", far.weights),
+                     ("every query dead", torch.zeros_like(d.weights))):
+        keys = far.keys if dw is far.weights else d.keys
+        totals = both(what, ladder, keys, dw, 1, (64, 1))
+        if any(totals):
+            fail(f"{what}: total {totals}, want 0")
 
 
 def netting_ladder(rng, dev):
@@ -840,7 +977,7 @@ def check_agg_ladder(ck: Checker, rng, dev) -> None:
     for name, ladder, delta, out_trace, spec, modes in agg_cases(rng, dev):
         for fast, flag, q_cap, g_cap in modes:
             got = ck.check("agg_ladder", f"{name}: fast {fast} gate {flag} "
-                           f"caps {q_cap}/{g_cap}", agg_kernel_checked,
+                           f"caps {q_cap}/{g_cap}", AGG,
                            ck_mod.agg_ladder_plain, delta, 2, out_trace,
                            ladder, SpecAgg(spec), q_cap, g_cap, fast,
                            torch.tensor(flag, device=dev))
@@ -863,7 +1000,7 @@ def check_kernels(ck: Checker, dev) -> None:
         delta = consolidated(rng, 20, 32, dev)
         for out_cap in (1024, 4):
             ck.check("join_ladder", f"ladder {li} out_cap {out_cap}",
-                     ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                     JOIN, ck_mod.join_ladder_plain,
                      delta.keys, delta.weights, ladder, 2, out_cap)
             qlive = delta.weights != 0
             qhi = tuple(k + torch.from_numpy(
@@ -871,7 +1008,7 @@ def check_kernels(ck: Checker, dev) -> None:
             for mode, kw in (("equal", {}), ("range", {"qhi_keys": qhi}),
                              ("gather_keys", {"gather_keys": 2})):
                 ck.check("gather_ladder", f"ladder {li} {mode} {out_cap}",
-                         ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                         GATHER, ck_mod.gather_ladder_plain,
                          delta.keys, qlive, ladder, out_cap, **kw)
     # -- the same with no gathered column (ng = 0): q8's auction side
     for li in range(2):
@@ -880,10 +1017,10 @@ def check_kernels(ck: Checker, dev) -> None:
         delta = consolidated(rng, 20, 32, dev, nv=0)
         for out_cap in (1024, 4):
             ck.check("join_ladder", f"ng 0 ladder {li} out_cap {out_cap}",
-                     ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                     JOIN, ck_mod.join_ladder_plain,
                      delta.keys, delta.weights, ladder, 2, out_cap)
             ck.check("gather_ladder", f"ng 0 ladder {li} {out_cap}",
-                     ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                     GATHER, ck_mod.gather_ladder_plain,
                      delta.keys, delta.weights != 0, ladder, out_cap)
     # q8-sized: a persons delta against the auctions-by-(seller, window)
     # trace, which has no value column
@@ -892,12 +1029,13 @@ def check_kernels(ck: Checker, dev) -> None:
               for n, cap in ((120_000, 1 << 17), (30_000, 1 << 15),
                              (6_000, 1 << 13))]
     delta = consolidated(rng, 2_000, 1 << 11, dev, spec=Q8_ROW)
-    ck.check("join_ladder", "q8-sized ng 0", ck_mod.join_ladder,
+    ck.check("join_ladder", "q8-sized ng 0", JOIN,
              ck_mod.join_ladder_plain, delta.keys, delta.weights, ladder, 2,
              1 << 14)
     check_lex_probe(ck, rng, dev)
     check_probe_runs(ck, rng, dev)
     check_cap0_and_wide(ck, rng, dev)
+    check_consumer_cases(ck, rng, dev)
     check_agg_ladder(ck, rng, dev)
     # -- q4-sized ladder: bids-schema levels up to 2M rows, 100k delta
     bids = bids_row(60_000)
@@ -909,10 +1047,10 @@ def check_kernels(ck: Checker, dev) -> None:
                                          1 << 20)[4])
     for out_cap in (1 << 23, total // 2):
         ck.check("join_ladder", f"q4-sized out_cap {out_cap} total {total}",
-                 ck_mod.join_ladder, ck_mod.join_ladder_plain,
+                 JOIN, ck_mod.join_ladder_plain,
                  delta.keys, delta.weights, big, 1, out_cap)
         ck.check("gather_ladder", f"q4-sized out_cap {out_cap}",
-                 ck_mod.gather_ladder, ck_mod.gather_ladder_plain,
+                 GATHER, ck_mod.gather_ladder_plain,
                  delta.keys, delta.weights != 0, big, out_cap)
     # -- segment reduce: random ids, then runs
     for n, S in ((1, 1), (64, 7), (500, 130), (300, 3), (2_000_000, 100_000)):
@@ -1041,24 +1179,32 @@ def build_query(name: str, device=None):
 class Recorder:
     """Wraps a kernel entry point to keep the arguments of its largest
     call on the main paths (for timing at the shapes the queries give
-    it), and which query made it."""
+    it), and which query made it: ``best``, by ``size_fn``; and with
+    ``alt_fn``, ``alt``, the largest call by that measure."""
 
     query = None  # the query being driven
     paused = 0  # > 0: record nothing (a chain's own kernels, a check)
 
-    def __init__(self, module, name: str, size_fn):
-        self.module, self.name, self.size_fn = module, name, size_fn
+    def __init__(self, module, name: str, size_fn, alt_fn=None):
+        self.module, self.name = module, name
+        self.size_fns = (size_fn,) if alt_fn is None else (size_fn, alt_fn)
         self.orig = getattr(module, name)
-        self.best = (-1, None, None, None)
+        self.kept = [(None, None, None, None)] * len(self.size_fns)
+
+    best = property(lambda self: self.kept[0])
+    alt = property(lambda self: self.kept[-1])
 
     def __call__(self, *args, **kw):
         if Recorder.paused:
             return self.orig(*args, **kw)
-        size = self.size_fn(*args, **kw)
-        if size > self.best[0]:
-            # a spine's level list changes after the tick: keep a snapshot
-            self.best = (size, tuple(tuple(a) if isinstance(a, list) else a
-                                     for a in args), kw, Recorder.query)
+        for i, size_fn in enumerate(self.size_fns):
+            size = size_fn(*args, **kw)
+            if self.kept[i][0] is None or size > self.kept[i][0]:
+                # a spine's level list changes after the tick: keep a
+                # snapshot
+                self.kept[i] = (size, tuple(
+                    tuple(a) if isinstance(a, list) else a for a in args),
+                    kw, Recorder.query)
         return self.orig(*args, **kw)
 
     def __enter__(self):
@@ -1074,6 +1220,10 @@ def _ladder_size(*args, **kw):
     return sum(lvl.cap for lvl in levels) + args[1].shape[0]
 
 
+def _ladder_queries(*args, **kw):
+    return args[1].shape[0], _ladder_size(*args)
+
+
 def _probe_size(tables, query_cols, *a, **kw):
     return sum(t[0].shape[0] for t in tables) + query_cols[0].shape[0]
 
@@ -1083,8 +1233,8 @@ def recorders():
 
     return [
         Recorder(ck_mod, "lex_probe_ladder_both", _probe_size),
-        Recorder(ck_mod, "join_ladder", _ladder_size),
-        Recorder(ck_mod, "gather_ladder", _ladder_size),
+        Recorder(ck_mod, "join_ladder", _ladder_size, _ladder_queries),
+        Recorder(ck_mod, "gather_ladder", _ladder_size, _ladder_queries),
         Recorder(ck_mod, "segment_reduce",
                  lambda spec, vals, w, *a, **k: w.shape[0]),
         Recorder(ck_mod, "rank_merge_scatter",
@@ -1486,7 +1636,7 @@ def time_ms(fn, reps: int = 10) -> float:
 # ``profiler_retries``.
 PROFILER_SENTINELS = 4
 SENTINEL_KERNEL = "spin_kernel"
-PROFILER_TRIES = 3
+PROFILER_TRIES = 6
 profiler_retries: list = []
 
 
@@ -1494,7 +1644,8 @@ def device_ms(fn, reps: int = 10, what: str = ""):
     """Device time of one call and the device operations (kernels and
     copies) it queues: torch.profiler's summed device time of everything
     that ``reps`` calls launched, and their count, over ``reps`` (None
-    and 0 if the profiler saw no device activity)."""
+    and 0 if the profiler saw no device activity), and the same split by
+    operation name, ``{name: [ms, operations]}`` a call, longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1520,7 +1671,13 @@ def device_ms(fn, reps: int = 10, what: str = ""):
              f"after them may be short")
     evs = [ev for ev in evs if SENTINEL_KERNEL not in ev.name]
     total_us = sum(ev.device_time_total for ev in evs)
-    return (total_us / 1e3 / reps if total_us else None), len(evs) / reps
+    by_op: dict = {}
+    for ev in evs:
+        x = by_op.setdefault(ev.name[:90], [0.0, 0])
+        x[0] += ev.device_time_total / 1e3 / reps
+        x[1] += 1 / reps
+    return ((total_us / 1e3 / reps if total_us else None), len(evs) / reps,
+            dict(sorted(by_op.items(), key=lambda kv: -kv[1][0])))
 
 
 def random_ids(args):
@@ -1604,29 +1761,40 @@ def _steps(n: int) -> int:
 
 def ladder_bound(args, kw, join: bool):
     """Least bytes and operations of one ladder launch on these inputs:
-    the queries read once; per (level, query) two searches of
-    ceil(log2(cap + 1)) probes of the key columns, but no more bytes than
-    the level's keys hold; the matched rows read once; every output slot
-    written."""
+    the queries read once at their width; per (level, query) one search of
+    ceil(log2(cap + 1)) probes of the key columns (the right side's few
+    compares from its answer are not counted), but no more bytes than the
+    level's keys hold; the matched rows' gathered columns and weights read
+    once; every output slot written (query row, gathered columns, weight
+    and the join's valid flag) and the total. Operations: the probes, and
+    one step per range start and per filled slot of the expansion."""
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     if join:
         qkeys, qm, levels, nk, out_cap = args
         total = int(ck_mod.join_ladder_plain(*args)[4])
+        gathered, qhi, w_out = levels[0].vals, (), qm.element_size()
     else:
         qkeys, qm, levels, out_cap = args[:4]
         nk = len(qkeys)
         total = int(ck_mod.gather_ladder_plain(*args, **kw)[1])
+        gathered = ck_mod._gather_tabs(levels, nk,
+                                       kw.get("gather_keys", 0))[0]
+        qhi = kw.get("qhi_keys") or ()
+        w_out = levels[0].weights.element_size()
     m = qm.shape[0]
-    nbytes = m * (2 * nk + 1) * 8
+    nbytes = sum(_nbytes(c) for c in (*qkeys, *qhi, qm))
     ops = 0
     for lvl in levels:
-        probes = 2 * m * _steps(lvl.cap) * nk
-        nbytes += min(probes * 8, sum(_nbytes(c) for c in lvl.keys[:nk]))
-        ops += probes
-    row_bytes = 8 + sum(c.element_size() for c in levels[0].vals)
-    nbytes += min(total, out_cap) * row_bytes + out_cap * (4 + row_bytes)
-    return nbytes, ops + out_cap * _steps(len(levels) * m)
+        steps = m * _steps(lvl.cap)
+        nbytes += sum(min(steps * c.element_size(), _nbytes(c))
+                      for c in lvl.keys[:nk])
+        ops += steps * nk
+    filled = min(total, out_cap)
+    row = sum(c.element_size() for c in gathered)
+    nbytes += filled * (row + levels[0].weights.element_size())
+    nbytes += out_cap * (4 + row + w_out + join) + 8
+    return nbytes, ops + len(levels) * m + filled
 
 
 def probe_bound(args):
@@ -1745,25 +1913,27 @@ def gate_on_variant(ck: Checker, label: str, call, plain, variants: dict,
     call = (*call[:6], bucket_cap(total), *call[7:])
     variants[key] = ("agg_ladder", call, kw)
     got = ck.check("agg_ladder", f"largest call, {label}, gather_cap "
-                   f"{call[6]} ({where})", agg_kernel_checked, plain, *call)
+                   f"{call[6]} ({where})", AGG, plain, *call)
     if int(got[-1]) != total:
         fail(f"{key}: gathered {int(got[-1])} rows, the plain version "
              f"{total}")
-    dev_ms, dev_ops = device_ms(lambda: ck_mod.agg_ladder(*call), what=key)
+    dev_ms, dev_ops, by_op = device_ms(lambda: ck_mod.agg_ladder(*call),
+                                       what=key)
     nbytes, ops = agg_bound(call, ck_mod.agg_ladder(*call))
     return {"queries": int(got[call[1]].sum()),  # qlive, after the qkeys
             "gather_cap": call[6],
             "gathered_rows": total,
             "ms": time_ms(lambda: ck_mod.agg_ladder(*call)),
             "device_ms": dev_ms, "device_ops_per_call": dev_ops,
+            "device_ms_by_op": by_op,
             "plain_ms": time_ms(lambda: plain(*call), reps=3),
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                            ops / INT64_OPS_PER_S) * 1e3}
+            "bound_ms": bound(nbytes, ops)[0]}
 
 
-def agg_graph_capture(args) -> dict:
-    """Whether a CUDA graph takes the aggregate kernel's cooperative
-    launch: the call warmed up on a side stream, captured in a
+def graph_capture(name: str, args, kw) -> dict:
+    """Whether a CUDA graph takes one call of the kernel entry point
+    ``name`` (the aggregate kernel's cooperative launch, the ladder
+    consumer's): the call warmed up on a side stream, captured in a
     ``torch.cuda.CUDAGraph``, its outputs zeroed and the graph replayed,
     then held against an eager call's outputs. A capture that raises is
     reported (the finding); a replay that differs fails the run."""
@@ -1771,17 +1941,18 @@ def agg_graph_capture(args) -> dict:
 
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
-    want = [t.clone() for t in flat_outputs(ck_mod.agg_ladder(*args))]
+    fn = getattr(ck_mod, name)
+    want = [t.clone() for t in flat_outputs(fn(*args, **kw))]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        ck_mod.agg_ladder(*args)
+        fn(*args, **kw)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.graph(graph):
-            out = flat_outputs(ck_mod.agg_ladder(*args))
+            out = flat_outputs(fn(*args, **kw))
     except Exception as e:  # a refusal is what this check reports
         torch.cuda.synchronize()
         return {"captured": False, "error": f"{type(e).__name__}: {e}"[:600]}
@@ -1790,11 +1961,31 @@ def agg_graph_capture(args) -> dict:
     graph.replay()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(out, want)):
-        fail("agg_ladder replayed from a CUDA graph differs from the "
-             "eager call")
+        fail(f"{name} replayed from a CUDA graph differs from the eager "
+             f"call")
     return {"captured": True, "replay_equal": True,
             "replay_ms": time_ms(graph.replay),
-            "eager_ms": time_ms(lambda: ck_mod.agg_ladder(*args))}
+            "eager_ms": time_ms(lambda: fn(*args, **kw))}
+
+
+def ladder_shape(args, kw, join: bool) -> dict:
+    """The shape of a join or gather call: level caps, queries, out_cap,
+    columns and their dtypes, and its unclamped total."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    levels = args[2]
+    nk = args[3] if join else len(args[0])
+    gathered = levels[0].vals if join else ck_mod._gather_tabs(
+        levels, nk, kw.get("gather_keys", 0))[0]
+    total = ck_mod.join_ladder_plain(*args)[4] if join else \
+        ck_mod.gather_ladder_plain(*args, **kw)[1]
+    return {"levels": [lvl.cap for lvl in levels],
+            "queries": args[1].shape[0],
+            "out_cap": args[4] if join else args[3],
+            "total": int(total), "key_columns": nk,
+            "key_dtypes": [str(c.dtype)[6:] for c in levels[0].keys[:nk]],
+            "gathered": [str(c.dtype)[6:] for c in gathered],
+            "range_queries": kw.get("qhi_keys") is not None}
 
 
 LADDER_NO_LIBRARY = (
@@ -1803,10 +1994,11 @@ LADDER_NO_LIBRARY = (
     "the matching rows")
 
 
-def kernel_table(captured, runs, ck: Checker):
+def kernel_table(captured, most_queries, runs, ck: Checker):
     """One row per kernel: its launches on each query's run and per
     measured tick, and its times at the largest call the queries gave
-    it. Also returns the variants of those calls it timed, ``{key: (entry
+    it (``captured``; the ladder join and gather also at their call with
+    the most queries, ``most_queries``). Also returns the variants of those calls it timed, ``{key: (entry
     point, args, kw)}``, for the turns."""
     import torch
 
@@ -1818,23 +2010,13 @@ def kernel_table(captured, runs, ck: Checker):
         size, args, kw, query = captured[name]
         if args is None:
             fail(f"no main-path call of {name} was captured")
-        if name == "rank_merge":
-            kern, plain = ck_mod.rank_merge_scatter, \
-                ck_mod.rank_merge_scatter_plain
-        elif name == "lex_probe_ladder":  # distinct's two-sided lookup
-            kern, plain = ck_mod.lex_probe_ladder_both, \
-                ck_mod.lex_probe_ladder_both_plain
-        elif name == "agg_ladder":
-            kern, plain = agg_kernel_checked, ck_mod.agg_ladder_plain
-        else:
-            kern = getattr(ck_mod, name)
-            plain = getattr(ck_mod, name + "_plain")
+        entry = ENTRY.get(name, name)
+        kern = getattr(ck_mod, entry)  # timed without the launch check
+        plain = getattr(ck_mod, entry + "_plain")
         ck.check(name, f"largest call on the queries (size {size}, {query})",
-                 kern, plain, *args, **kw)
-        if name == "agg_ladder":
-            kern = ck_mod.agg_ladder  # timed without the launch check
+                 launch_checked(name, entry), plain, *args, **kw)
         ms = time_ms(lambda: kern(*args, **kw))
-        kernel_device_ms, device_ops = device_ms(
+        kernel_device_ms, device_ops, by_op = device_ms(
             lambda: kern(*args, **kw), what=name)
         plain_ms = time_ms(lambda: plain(*args, **kw))
         library_ms = None
@@ -1852,12 +2034,45 @@ def kernel_table(captured, runs, ck: Checker):
                 "[K, maxcap] stack of the first column + clamp to each "
                 "level's cap, side left: one side of the same function, "
                 "for one key column only")
-        elif name == "join_ladder":
-            nbytes, ops = ladder_bound(args, kw, join=True)
+        elif name in ("join_ladder", "gather_ladder"):
+            join = name == "join_ladder"
+            nbytes, ops = ladder_bound(args, kw, join=join)
             extra["library_note"] = LADDER_NO_LIBRARY
-        elif name == "gather_ladder":
-            nbytes, ops = ladder_bound(args, kw, join=False)
-            extra["library_note"] = LADDER_NO_LIBRARY
+            extra["shape"] = ladder_shape(args, kw, join)
+            # one call of the library: its kernels' device ops, one more
+            # where the argument block goes as a device table
+            sh = extra["shape"]
+            slots = ck_mod.load_library("ladder_consumer").ladder_slots(
+                len(sh["levels"]), sh["key_columns"], len(sh["gathered"]))
+            want_ops = ck_mod.LADDER_KERNELS + (slots > ck_mod.ARGS_MAX)
+            if device_ops != want_ops:
+                fail(f"{name}: {device_ops} device ops a call, want "
+                     f"{want_ops} ({slots} argument slots)")
+            # the call's time split: every query dead (the two launches
+            # and the dead slots: no search, no match), and out_cap 1
+            # (every search and the expansion's walk over the range
+            # starts, one slot filled); and the main-path call with the
+            # most queries (the join's: q4's bids delta against its
+            # auctions, with matches)
+            dead, one = list(args), list(args)
+            dead[1] = torch.zeros_like(args[1])
+            one[4 if join else 3] = 1
+            _, most, most_kw, most_query = most_queries[name]
+            for label, call, ckw, on in (
+                    ("every query dead", tuple(dead), kw, query),
+                    ("out_cap 1", tuple(one), kw, query),
+                    ("most queries", most, most_kw, most_query)):
+                ck.check(name, f"{label} ({on})", launch_checked(name),
+                         plain, *call, **ckw)
+                variants[f"{name}, {label}"] = (name, call, ckw)
+                v_ms, v_ops, v_by_op = device_ms(
+                    lambda: kern(*call, **ckw), what=f"{name}, {label}")
+                extra[label] = {
+                    "ms": time_ms(lambda: kern(*call, **ckw)),
+                    "device_ms": v_ms, "device_ops_per_call": v_ops,
+                    "device_ms_by_op": v_by_op,
+                    "bound_ms": bound(*ladder_bound(call, ckw, join))[0],
+                    "shape": ladder_shape(call, ckw, join), "timed_on": on}
         elif name == "agg_ladder":
             out = ck_mod.agg_ladder(*args)
             nbytes, ops = agg_bound(args, out)
@@ -1898,11 +2113,12 @@ def kernel_table(captured, runs, ck: Checker):
             variants[f"{name}, random ids"] = (name, rnd, kw)
             ck.check(name, f"largest call with random ids (size {size})",
                      kern, plain, *rnd, **kw)
-            rnd_dev = device_ms(lambda: kern(*rnd, **kw),
-                                what=f"{name}, random ids")
+            rnd_ms, rnd_ops, rnd_by_op = device_ms(
+                lambda: kern(*rnd, **kw), what=f"{name}, random ids")
             extra["random_ids"] = {
                 "ms": time_ms(lambda: kern(*rnd, **kw)),
-                "device_ms": rnd_dev[0], "device_ops_per_call": rnd_dev[1]}
+                "device_ms": rnd_ms, "device_ops_per_call": rnd_ops,
+                "device_ms_by_op": rnd_by_op}
             extra["shape"] = {"rows": w.shape[0], "segments": nseg,
                               "spec": [op for op, _ in spec],
                               "id_dtype": str(seg.dtype)}
@@ -1918,8 +2134,7 @@ def kernel_table(captured, runs, ck: Checker):
             extra["library_note"] = (
                 "stable torch.sort of the one-column concatenation of both "
                 "runs: the same order for one-column rows only")
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / INT64_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, ops)
         by_query = {q: launches[name] for q, (launches, _) in runs.items()
                     if launches[name]}
         rows.append({
@@ -1933,9 +2148,9 @@ def kernel_table(captured, runs, ck: Checker):
                 if q in by_query and per_tick[name]},
             "max_abs_err": ck.max_err[name], "ms": ms,
             "device_ms": kernel_device_ms,
-            "device_ops_per_call": device_ops, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "device_ops_per_call": device_ops, "device_ms_by_op": by_op,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "checks": ck.cases[name],
             "timed_call_size": size, "timed_on": query, **extra,
         })
@@ -2008,8 +2223,8 @@ def _plain_data(x) -> bool:
 def time_calls(ck_mod, calls: dict, label: str) -> dict:
     """Time each saved call ``{key: (entry point, args, kw)}`` whose entry
     point ``ck_mod`` has: launches per call, a checksum of its outputs,
-    ``ms``, ``device_ms`` and the device operations per call, as in the
-    kernel table."""
+    ``ms``, ``device_ms`` and the device operations per call, whole and
+    by name, as in the kernel table."""
     import torch
 
     dev = torch.device("cuda")
@@ -2028,8 +2243,9 @@ def time_calls(ck_mod, calls: dict, label: str) -> dict:
                 1, t.numel() + 1, device=dev).reshape(t.shape)).sum())
                 for t in got],
             "ms": time_ms(lambda: fn(*args, **kw))}
-        out[name]["device_ms"], out[name]["device_ops_per_call"] = \
-            device_ms(lambda: fn(*args, **kw), what=f"{name} ({label})")
+        (out[name]["device_ms"], out[name]["device_ops_per_call"],
+         out[name]["device_ms_by_op"]) = device_ms(
+            lambda: fn(*args, **kw), what=f"{name} ({label})")
     out["profiler_retries"] = list(profiler_retries)
     return out
 
@@ -2153,6 +2369,7 @@ def main() -> int:
         for name in COMPILED:
             runs[f"{name}-compiled"] = run_compiled(name)
     captured = {r.name: r.best for r in recs}
+    most_queries = {r.name: r.alt for r in recs}
     calls = {name: (name, args, kw) for name, (_, args, kw, _) in
              captured.items() if args is not None}
     captured["rank_merge"] = captured.pop("rank_merge_scatter")
@@ -2165,14 +2382,16 @@ def main() -> int:
             f"events, {rows} output rows equal on the CPU and on the card")
 
     # 6. kernel table at the shapes the queries gave each kernel
-    table, variants = kernel_table(captured, runs, ck)
+    table, variants = kernel_table(captured, most_queries, runs, ck)
     if opts.parent:
         # 7. the other trees' kernels against this tree's, in turns
         say(json.dumps({"turns": time_in_turns({**calls, **variants},
                                                 opts.parent)}))
-    # 8. whether a CUDA graph captures the aggregate kernel's launch
-    say(json.dumps({"agg_ladder_graph_capture":
-                    agg_graph_capture(captured["agg_ladder"][1])}))
+    # 8. whether a CUDA graph captures the cooperative launches of the
+    #    aggregate kernel and the ladder consumer (a join and a gather)
+    say(json.dumps({"graph_capture": {
+        name: graph_capture(name, *captured[name][1:3])
+        for name in ("agg_ladder", "join_ladder", "gather_ladder")}}))
     say(json.dumps({"profiler_retries": profiler_retries}))
     say(json.dumps({"kernels": table}))
     say(smi_line)

@@ -168,38 +168,6 @@ struct Scratch {
   }
 };
 
-// Exclusive block-wide scan of one int64 per thread; `*total` gets the
-// block's sum. Every thread of the block calls it (it syncs twice).
-__device__ __forceinline__ i64 block_scan(i64 x, i64* warp_sums,
-                                          i64* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  i64 incl = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const i64 y = __shfl_up_sync(FULL_MASK, incl, d);
-    if (lane >= d) incl += y;
-  }
-  __syncthreads();  // the last call has read warp_sums
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  i64 before = 0, all = 0;
-#pragma unroll
-  for (int v = 0; v < WARPS; ++v) {
-    const i64 s = warp_sums[v];
-    if (v < warp) before += s;
-    all += s;
-  }
-  *total = all;
-  return before + incl - x;
-}
-
-template <class A>
-__device__ __forceinline__ i64 col_at(const A& a, int slot, int kind_slot,
-                                      i64 row) {
-  return load_widened(col_ptr(a, slot), static_cast<int>(a[kind_slot]),
-                      row);
-}
-
 // delta row r heads a group
 template <class A>
 __device__ bool is_head(const A& a, const Layout& L, i64 r, i64 w) {
@@ -209,49 +177,6 @@ __device__ bool is_head(const A& a, const Layout& L, i64 r, i64 w) {
     if (col_at(a, c, L.KD + c, r) != col_at(a, c, L.KD + c, r - 1))
       return true;
   return false;
-}
-
-// Sign of table row `row` minus the query `q`, over `ncols` columns: table
-// column c in slot t0 + c * ts, its ColKind in slot tk + c.
-template <class A>
-__device__ int cmp_row(const A& a, int t0, int ts, int tk, int ncols,
-                       i64 row, const i64* q) {
-  for (int c = 0; c < ncols; ++c) {
-    const i64 v = col_at(a, t0 + c * ts, tk + c, row);
-    if (v != q[c]) return v < q[c] ? -1 : 1;
-  }
-  return 0;
-}
-
-// The rows [*lo, *lo + count) of a sorted table (row count n) equal to the
-// key `q`: a lower-bound search, then a gallop over the run of equal rows
-// from there and a search of its last gap.
-template <class A>
-__device__ i64 equal_range(const A& a, int t0, int ts, int tk, int ncols,
-                           i64 n, const i64* q, i64* lo_out) {
-  i64 lo = 0, hi = n;
-  while (lo < hi) {
-    const i64 mid = (lo + hi) >> 1;
-    if (cmp_row(a, t0, ts, tk, ncols, mid, q) < 0) lo = mid + 1;
-    else hi = mid;
-  }
-  *lo_out = lo;
-  if (lo >= n || cmp_row(a, t0, ts, tk, ncols, lo, q) != 0) return 0;
-  i64 b = lo + 1, e = n;  // the run's end lies in [b, e]
-  for (i64 step = 1; b < e; step <<= 1) {
-    const i64 probe = min(b + step - 1, e - 1);
-    if (cmp_row(a, t0, ts, tk, ncols, probe, q) != 0) {
-      e = probe;
-      break;
-    }
-    b = probe + 1;
-  }
-  while (b < e) {  // rows before b equal q, rows from e on do not
-    const i64 mid = (b + e) >> 1;
-    if (cmp_row(a, t0, ts, tk, ncols, mid, q) == 0) b = mid + 1;
-    else e = mid;
-  }
-  return b - lo;
 }
 
 // op o of the fast path's reduction: the spec's ops, then present, then
@@ -352,7 +277,7 @@ void agg_ladder_kernel(A a, Dims d, const unsigned char* flag,
     for (int i = 0; i < ITEMS; ++i)
       heads += r0 + i < d.m && is_head(a, L, r0 + i, w[i]);
   }
-  block_scan(heads, warp_sums, &total);
+  block_scan<THREADS>(heads, warp_sums, &total);
   if (t == 0) S.heads[b] = total;
   grid.sync();
 
@@ -363,8 +288,8 @@ void agg_ladder_kernel(A a, Dims d, const unsigned char* flag,
     base += i < b ? h : 0;
     nq += h;
   }
-  block_scan(base, warp_sums, &base);
-  block_scan(nq, warp_sums, &nq);
+  block_scan<THREADS>(base, warp_sums, &base);
+  block_scan<THREADS>(nq, warp_sums, &nq);
   if (b == 0 && t == 0) store_out(a, L, L.nq(), 0, nq);
   for (i64 tile = tile0; tile < tile1; ++tile) {
     const i64 r0 = tile * TILE + t * ITEMS;
@@ -377,7 +302,7 @@ void agg_ladder_kernel(A a, Dims d, const unsigned char* flag,
       head[i] = r0 + i < d.m && is_head(a, L, r0 + i, w[i]);
       n_heads += head[i];
     }
-    i64 j = base + block_scan(n_heads, warp_sums, &total) - 1;
+    i64 j = base + block_scan<THREADS>(n_heads, warp_sums, &total) - 1;
     base += total;
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
@@ -440,7 +365,7 @@ void agg_ladder_kernel(A a, Dims d, const unsigned char* flag,
       S.end[k * d.q_cap + j] = cnt;
       sum += cnt;
     }
-    block_scan(sum, warp_sums, &total);
+    block_scan<THREADS>(sum, warp_sums, &total);
     if (t == 0) S.sums[static_cast<i64>(k) * d.grid + b] = total;
   }
   grid.sync();
@@ -455,8 +380,8 @@ void agg_ladder_kernel(A a, Dims d, const unsigned char* flag,
       all += sums[i];
       before += i < b ? sums[i] : 0;
     }
-    block_scan(all, warp_sums, &all);
-    block_scan(before, warp_sums, &before);
+    block_scan<THREADS>(all, warp_sums, &all);
+    block_scan<THREADS>(before, warp_sums, &before);
     if (t == 0) {
       tot[k] = all;
       pre[k] = before;
@@ -481,7 +406,7 @@ void agg_ladder_kernel(A a, Dims d, const unsigned char* flag,
       const i64 x = k * d.q_cap + j;
       const i64 cnt = valid ? S.end[x] : 0;
       const i64 start = pre[k];  // read before thread 0 moves it
-      const i64 off = start + block_scan(cnt, warp_sums, &total);
+      const i64 off = start + block_scan<THREADS>(cnt, warp_sums, &total);
       if (t == 0) pre[k] = start + total;
       const i64 room = (k == 0 ? d.q_cap : d.gcap) - off;
       const i64 take = room <= 0 ? 0 : (cnt < room ? cnt : room);

@@ -1,15 +1,13 @@
 // Shared pieces of the port's hand-written Hopper kernels: the argument
-// block every launch takes, the lexicographic binary search that
-// replaces the Pallas `_lex_search` (dbsp_tpu/zset/pallas_kernels.py:102),
-// and the run-wise fold of the aggregate vocabulary that segment reduce
-// and the fused aggregate chain (agg_ladder.cu) share.
+// block every launch takes, the lexicographic searches of sorted levels
+// that replace the Pallas `_lex_search` (dbsp_tpu/zset/pallas_kernels.py:102)
+// (a lower bound, then a gallop over the run of rows equal to the query),
+// a block-wide scan, and the run-wise fold of the aggregate vocabulary
+// that segment reduce and the fused aggregate chain (agg_ladder.cu) share.
 //
-// A column reaches the ladder consumer as an int64 device pointer: its
-// wrappers widen narrower integer and bool columns first, as the Pallas
-// wrappers do. The lex probe, segment reduce and the rank merge read (and
-// the merge writes) each column at its own width instead, with its
-// `ColKind` in the argument block; they widen every value to int64 as
-// they load it, so their compares and sums are the same int64 ones.
+// Every kernel reads (and writes) each column at its own width, with its
+// `ColKind` in the argument block; it widens every value to int64 as it
+// loads it, so its compares and sums are the same int64 ones.
 // Pointers and small integers travel in one argument block
 // of int64 slots; each wrapper documents its own slot layout. Kernels are
 // templates over where the block lives:
@@ -55,11 +53,6 @@ static inline Args args_by_value(const i64* host, int n) {
 }
 
 template <class A>
-__device__ __forceinline__ const i64* in_col(const A& a, int slot) {
-  return reinterpret_cast<const i64*>(a[slot]);
-}
-
-template <class A>
 __device__ __forceinline__ const void* col_ptr(const A& a, int slot) {
   return reinterpret_cast<const void*>(a[slot]);
 }
@@ -67,33 +60,6 @@ __device__ __forceinline__ const void* col_ptr(const A& a, int slot) {
 template <class A>
 __device__ __forceinline__ i64* out_col(const A& a, int slot) {
   return reinterpret_cast<i64*>(a[slot]);
-}
-
-// Insertion point of query row `qi` into the sorted table rows [0, n):
-// table column c lives in slot tab0 + c * tab_stride, query column c in
-// slot q0 + c. STRICT counts the rows < query (side "left"); otherwise the
-// rows <= query (side "right"). The loop runs to convergence, so the
-// result equals the fixed-step search of the reference bit for bit.
-template <bool STRICT, class A>
-__device__ i64 lex_search(const A& a, int tab0, int tab_stride, int q0,
-                          int ncols, i64 n, i64 qi) {
-  i64 q[MAX_COLS];
-  for (int c = 0; c < ncols; ++c) q[c] = in_col(a, q0 + c)[qi];
-  i64 lo = 0, hi = n;
-  while (lo < hi) {
-    const i64 mid = (lo + hi) >> 1;
-    int cmp = 0;  // sign of table[mid] - query, lexicographic
-    for (int c = 0; c < ncols; ++c) {
-      const i64 t = in_col(a, tab0 + c * tab_stride)[mid];
-      if (t != q[c]) {
-        cmp = t < q[c] ? -1 : 1;
-        break;
-      }
-    }
-    const bool go_right = STRICT ? (cmp < 0) : (cmp <= 0);
-    if (go_right) lo = mid + 1; else hi = mid;
-  }
-  return lo;
 }
 
 // Element type of a column read or written at its own width (the
@@ -138,6 +104,97 @@ __device__ __forceinline__ void store_narrowed(void* p, int kind, i64 i,
       break;
     default: static_cast<unsigned char*>(p)[i] = v != 0;  // BOOL
   }
+}
+
+template <class A>
+__device__ __forceinline__ i64 col_at(const A& a, int slot, int kind_slot,
+                                      i64 row) {
+  return load_widened(col_ptr(a, slot), static_cast<int>(a[kind_slot]),
+                      row);
+}
+
+// Sign of table row `row` minus the query `q`, lexicographic over `ncols`
+// columns: table column c in slot t0 + c * ts, its ColKind in slot tk + c.
+template <class A>
+__device__ __forceinline__ int cmp_row(const A& a, int t0, int ts, int tk,
+                                       int ncols, i64 row, const i64* q) {
+  for (int c = 0; c < ncols; ++c) {
+    const i64 v = col_at(a, t0 + c * ts, tk + c, row);
+    if (v != q[c]) return v < q[c] ? -1 : 1;
+  }
+  return 0;
+}
+
+// Insertion point of `q` into the sorted table rows [lo, hi) (table as for
+// cmp_row): STRICT counts the rows < q (side "left"), otherwise the rows
+// <= q (side "right"). On [0, n) it equals the fixed-step search of the
+// reference bit for bit; on [lo, hi) it is the full search's answer
+// clamped into [lo, hi].
+template <bool STRICT, class A>
+__device__ i64 search_rows(const A& a, int t0, int ts, int tk, int ncols,
+                           i64 lo, i64 hi, const i64* q) {
+  while (lo < hi) {
+    const i64 mid = (lo + hi) >> 1;
+    const int cmp = cmp_row(a, t0, ts, tk, ncols, mid, q);
+    if (STRICT ? cmp < 0 : cmp <= 0) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The rows [*lo_out, *lo_out + count) of a sorted table of n rows equal to
+// the key `q`; returns count. A lower-bound search, then, since every row
+// from there on is >= q (so <= q iff equal), a gallop over the run of
+// equal rows and a search of its last gap: one load where no row equals
+// q, two where one does (a consolidated level), and exact for any run.
+template <class A>
+__device__ i64 equal_range(const A& a, int t0, int ts, int tk, int ncols,
+                           i64 n, const i64* q, i64* lo_out) {
+  const i64 lo = search_rows<true>(a, t0, ts, tk, ncols, 0, n, q);
+  *lo_out = lo;
+  if (lo >= n || cmp_row(a, t0, ts, tk, ncols, lo, q) != 0) return 0;
+  i64 b = lo + 1, e = n;  // the run's end lies in [b, e]
+  for (i64 step = 1; b < e; step <<= 1) {
+    const i64 probe = min(b + step - 1, e - 1);
+    if (cmp_row(a, t0, ts, tk, ncols, probe, q) != 0) {
+      e = probe;
+      break;
+    }
+    b = probe + 1;
+  }
+  while (b < e) {  // rows before b equal q, rows from e on do not
+    const i64 mid = (b + e) >> 1;
+    if (cmp_row(a, t0, ts, tk, ncols, mid, q) == 0) b = mid + 1;
+    else e = mid;
+  }
+  return b - lo;
+}
+
+// Exclusive block-wide scan of one int64 per thread of a THREADS-thread
+// block; `*total` gets the block's sum. Every thread of the block calls
+// it (it syncs twice); `warp_sums` is THREADS / 32 shared slots.
+template <int THREADS>
+__device__ __forceinline__ i64 block_scan(i64 x, i64* warp_sums,
+                                          i64* total) {
+  constexpr int WARPS = THREADS / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  i64 incl = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const i64 y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  __syncthreads();  // the last call has read warp_sums
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  i64 before = 0, all = 0;
+#pragma unroll
+  for (int v = 0; v < WARPS; ++v) {
+    const i64 s = warp_sums[v];
+    if (v < warp) before += s;
+    all += s;
+  }
+  *total = all;
+  return before + incl - x;
 }
 
 // Walks the elements e = c * n + r of an [nc][n] block that one thread of

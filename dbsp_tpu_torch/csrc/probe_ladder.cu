@@ -25,7 +25,9 @@
 // <= the query iff it equals it. The lane gallops over the run of rows
 // equal to the query from L on and searches only the run's last gap: one
 // load where no row equals the query, two where one does (a consolidated
-// level), and still exact for longer runs. A cap-0 level answers 0. No
+// level), and still exact for longer runs (common.cuh `equal_range`,
+// which the ladder consumer and agg_ladder share). A cap-0 level answers
+// 0. No
 // lane is zeroed: every query, sentinel and dead ones included, gets its
 // raw insertion point, as the Pallas kernel gives it; the caller masks
 // dead rows. Columns are read at their own width (`ColKind`), so the
@@ -46,38 +48,6 @@ constexpr int THREADS = 256;
 // each lane waits on a chain of dependent loads
 constexpr int MIN_BLOCKS = 2048 / THREADS;
 
-// Insertion point of q into level k, known to lie in [lo, hi].
-template <bool STRICT, class A>
-__device__ i64 level_search(const A& a, int k, int K, int D, int ncols,
-                            const i64* q, i64 lo, i64 hi) {
-  while (lo < hi) {
-    const i64 mid = (lo + hi) >> 1;
-    int cmp = 0;
-    for (int c = 0; c < ncols; ++c) {
-      const i64 t = load_widened(col_ptr(a, c * K + k),
-                                 static_cast<int>(a[D + c]), mid);
-      if (t != q[c]) {
-        cmp = t < q[c] ? -1 : 1;
-        break;
-      }
-    }
-    const bool go_right = STRICT ? (cmp < 0) : (cmp <= 0);
-    if (go_right) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// Row `row` of level k equals q.
-template <class A>
-__device__ bool row_equals(const A& a, int k, int K, int D, int ncols,
-                           const i64* q, i64 row) {
-  for (int c = 0; c < ncols; ++c)
-    if (load_widened(col_ptr(a, c * K + k),
-                     static_cast<int>(a[D + c]), row) != q[c])
-      return false;
-  return true;
-}
-
 template <class A>
 __launch_bounds__(THREADS, MIN_BLOCKS) __global__
 void probe_ladder_kernel(A a, int K, int ncols, i64 m, int* left,
@@ -89,28 +59,11 @@ void probe_ladder_kernel(A a, int K, int ncols, i64 m, int* left,
   const i64 cap = a[C + k];
   const i64 out = static_cast<i64>(k) * m + i;
   i64 q[MAX_COLS];
-  for (int c = 0; c < ncols; ++c)
-    q[c] = load_widened(col_ptr(a, Q + c),
-                        static_cast<int>(a[D + ncols + c]), i);
-  const i64 found = level_search<true>(a, k, K, D, ncols, q, 0, cap);
+  for (int c = 0; c < ncols; ++c) q[c] = col_at(a, Q + c, D + ncols + c, i);
+  i64 found;
+  const i64 run = equal_range(a, k, K, D, ncols, cap, q, &found);
   left[out] = static_cast<int>(found);
-  // gallop over the run of rows equal to q that starts at `found` (none,
-  // or one in a consolidated level), then search its last gap
-  i64 lo = found, hi = found;  // no row equals q: right == left
-  if (found < cap && row_equals(a, k, K, D, ncols, q, found)) {
-    lo = found + 1;
-    hi = cap;
-    for (i64 step = 1; lo < hi; step <<= 1) {
-      const i64 probe = min(lo + step - 1, hi - 1);
-      if (!row_equals(a, k, K, D, ncols, q, probe)) {
-        hi = probe;
-        break;
-      }
-      lo = probe + 1;
-    }
-  }
-  right[out] = static_cast<int>(
-      level_search<false>(a, k, K, D, ncols, q, lo, hi));
+  right[out] = static_cast<int>(found + run);
 }
 
 template <class A>

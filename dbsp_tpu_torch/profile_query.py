@@ -37,16 +37,15 @@ PROFILE_TICKS = 3
 
 
 # The port's hand-written kernels: the __global__ functions of csrc/*.cu.
-PORT_KERNELS = ("probe_ladder_kernel", "probe_kernel", "scan_tiles_kernel",
-                "add_tile_offsets_kernel", "total_kernel", "gather_kernel",
-                "rank_merge_kernel", "fill_kernel", "rows_kernel",
-                "fin_avg_kernel", "agg_ladder_kernel")
+PORT_KERNELS = ("probe_ladder_kernel", "consumer_probe_kernel",
+                "consumer_expand_kernel", "rank_merge_kernel", "fill_kernel",
+                "rows_kernel", "fin_avg_kernel", "agg_ladder_kernel")
 
 
 def port_kernel(event: str):
     """The name in PORT_KERNELS that the profiler event ``event`` (mangled
     or demangled) is a launch of, else None: the name must stand alone,
-    so PyTorch's ``vectorized_gather_kernel`` is not ``gather_kernel``."""
+    not inside a longer name of another kernel."""
     return next((k for k in PORT_KERNELS
                  if re.search(rf"(?<![A-Za-z_]){k}(?![a-z0-9_])", event)),
                 None)

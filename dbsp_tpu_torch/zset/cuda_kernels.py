@@ -23,16 +23,14 @@ the other. Each launch adds one to ``LAUNCHES[name]``.
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
 shared library per source with a plain C interface, all sources at once,
 into ``dbsp_tpu_torch/_build/<hash of the sources>/``, and loaded with
-``ctypes``. The lex probe, segment reduce, the rank merge and the
-aggregate chain read (and the merge and the chain write) every column at
-its own width, with its element type in the argument block
-(``_KINDS``). The ladder consumer takes int64 columns: its wrappers widen
-narrower integer and bool columns, as the Pallas wrappers do, and narrow
-the results back. Float columns are refused. A
-launch's pointers and sizes travel in one argument block: by value as a
-kernel parameter up to ``ARGS_MAX`` slots, above that as a device table
-uploaded from pinned memory without a sync, so a ladder of any depth
-launches.
+``ctypes``. Every kernel reads (and writes) each column at its own width,
+with its element type in the argument block (``_KINDS``); float columns
+are refused. A launch's pointers and sizes travel in one argument block:
+by value as a kernel parameter up to ``ARGS_MAX`` slots, above that as a
+device table uploaded from pinned memory without a sync, so a ladder of
+any depth launches. The ladder consumer and the aggregate chain build
+their argument block from a per-signature plan (slot layout, element
+types, constants) and return their outputs as views of one buffer.
 """
 
 from __future__ import annotations
@@ -140,10 +138,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.lex_probe_ladder.argtypes = block + [I, I, L, P, P, P]
         lib.lex_probe_ladder.restype = I
     if hasattr(lib, "ladder_consumer"):
+        lib.ladder_slots.argtypes = [I, I, I]
+        lib.ladder_slots.restype = I
         lib.ladder_scratch_elems.argtypes = [I, L]
         lib.ladder_scratch_elems.restype = L
-        lib.ladder_consumer.argtypes = block + [I, I, I, L, L, I, P, P, P, P,
-                                                P]
+        lib.ladder_consumer.argtypes = block + [I, I, I, L, L, I, I, P]
         lib.ladder_consumer.restype = I
     if hasattr(lib, "segment_reduce"):
         lib.segment_reduce.argtypes = block + [I, I, L, L, P, P]
@@ -189,7 +188,7 @@ class _ArgBlock:
     ``ARGS_MAX`` slots the kernels take it by value as a kernel parameter;
     above that :meth:`table` uploads it to the device (pinned host copy,
     asynchronous, no sync) and the kernels read it there. Keeps every
-    int64 column it hands out referenced until the launch is queued."""
+    contiguous copy it makes referenced until the launch is queued."""
 
     def __init__(self, device: torch.device, n_slots: int, what: str):
         self.device = device
@@ -203,25 +202,10 @@ class _ArgBlock:
     def by_value(self) -> bool:
         return self.n_slots <= ARGS_MAX
 
-    def col(self, slot: int, t: torch.Tensor) -> None:
-        """Put column ``t`` (widened to contiguous int64) in ``slot``."""
-        if not t.is_cuda or t.device != self.device:
-            raise ValueError(f"{self.what}: needs CUDA tensors on "
-                             f"{self.device}, got one on {t.device}")
-        if t.dtype.is_floating_point or t.dtype.is_complex:
-            raise ValueError(f"{self.what}: integer and bool columns only, "
-                             f"got {t.dtype}")
-        t = t.to(torch.int64).contiguous()
-        self.keep.append(t)
-        self.slots[slot] = t.data_ptr()
-
     def col_at_width(self, slot: int, t: torch.Tensor) -> int:
         """Put column ``t`` in ``slot`` as it is (made contiguous if it is
         not); returns its ColKind."""
-        kind = _KINDS.get(t.dtype)
-        if kind is None:
-            raise ValueError(f"{self.what}: integer columns of 1, 2, 4 or 8 "
-                             f"bytes and bool columns only, got {t.dtype}")
+        kind = _kind(t.dtype, self.what)
         self.ptrs(slot, (t,))
         return kind
 
@@ -292,6 +276,60 @@ def _cuda_device(t: torch.Tensor, what: str) -> torch.device:
         raise ValueError(f"{what}: needs a CPU tensor (plain version) or a "
                          f"CUDA tensor (kernel), got one on {t.device}")
     return t.device
+
+
+def _kind(dtype: torch.dtype, what: str) -> int:
+    kind = _KINDS.get(dtype)
+    if kind is None:
+        raise ValueError(f"{what}: integer columns of 1, 2, 4 or 8 bytes and "
+                         f"bool columns only, got {dtype}")
+    return kind
+
+
+class _Carve(NamedTuple):
+    """Outputs of several dtypes as views of one int64 buffer
+    (:func:`_carve_plan`, :func:`_carve`)."""
+
+    # the outputs of one dtype lie side by side: per dtype (dtype, first
+    # and last int64 element, its outputs' indices, their lengths and the
+    # padding after them)
+    regions: tuple
+    zero_d: tuple  # the outputs that are 0-d tensors
+    byte_offsets: tuple  # each output's place in the buffer
+    n_out: int  # int64 elements of the outputs
+    n: int  # outputs
+
+
+def _carve_plan(shapes) -> _Carve:
+    """The carving of outputs ``shapes``, (dtype, length or None for a 0-d
+    tensor) each, out of one int64 buffer."""
+    regions, byte_offsets, off = [], [0] * len(shapes), 0
+    for dtype in dict.fromkeys(dt for dt, _ in shapes):
+        idx = tuple(x for x, (dt, _) in enumerate(shapes) if dt == dtype)
+        sizes = tuple(shapes[x][1] or 1 for x in idx)
+        per, at = 8 // dtype.itemsize, 0
+        for x, n in zip(idx, sizes):
+            byte_offsets[x] = 8 * off + at * dtype.itemsize
+            at += n
+        n64 = max(1, -(-at // per))
+        regions.append((dtype, off, off + n64, idx, sizes, n64 * per - at))
+        off += n64
+    return _Carve(tuple(regions),
+                  tuple(x for x, (_, n) in enumerate(shapes) if n is None),
+                  tuple(byte_offsets), off, len(shapes))
+
+
+def _carve(buf: torch.Tensor, c: _Carve) -> list:
+    """The outputs of ``c`` as views of ``buf`` (int64, at least
+    ``c.n_out`` elements)."""
+    outs = [None] * c.n
+    for dtype, lo, hi, idx, sizes, pad in c.regions:
+        parts = buf[lo:hi].view(dtype).split_with_sizes((*sizes, pad))
+        for x, part in zip(idx, parts):
+            outs[x] = part
+    for x in c.zero_d:
+        outs[x] = outs[x][0]
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -434,49 +472,120 @@ def _select_gather(cols_per_level: Sequence[Cols], level: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# merged items (range starts and slots) of a warp tile of the expansion,
+# and kernels a call launches (csrc/ladder_consumer.cu WARP_TILE =
+# 32 x ITEMS, the probe and the expansion)
+LADDER_TILE = 128
+LADDER_KERNELS = 2
+
+
+class _LadderPlan(NamedTuple):
+    """What a launch of csrc/ladder_consumer.cu takes that depends only on
+    the call's signature (:func:`_ladder_plan`)."""
+
+    n_slots: int
+    template: tuple  # every slot but the pointers, level caps and outputs
+    caps: int  # the slot of level 0's row count
+    out: int  # the slot of the first output's pointer
+    out_dtypes: tuple  # each gathered column's, then w's
+
+
+@functools.lru_cache(maxsize=64)
+def _ladder_plan(K: int, nk: int, ng: int, dtypes: tuple, join: bool,
+                 same_hi: bool) -> _LadderPlan:
+    """The plan of a call whose columns have ``dtypes``, in the order of
+    their pointer slots (csrc/ladder_consumer.cu): per key column every
+    level's, per gathered column every level's, every level's weights,
+    the lower query columns, the upper ones and the query weights (join)
+    or live flags (gather). ``same_hi``: the upper queries are the lower
+    ones. A column must share its dtype across the levels."""
+    what = "join_ladder" if join else "gather_ladder"
+    per_level = [dtypes[g * K:(g + 1) * K] for g in range(nk + ng + 1)]
+    for g, dts in enumerate(per_level):
+        if any(dt != dts[0] for dt in dts):
+            raise ValueError(f"{what}: one column of every level must share "
+                             f"a dtype, got {dts} (column {g})")
+    level_dts = tuple(dts[0] for dts in per_level)
+    query_dts = dtypes[(nk + ng + 1) * K:]
+    kinds = tuple(_kind(dt, what) for dt in (*level_dts, *query_dts))
+    gathered = level_dts[nk:nk + ng]
+    w_dt = query_dts[-1] if join else level_dts[-1]
+    dead = tuple(0 if join else int(kernels.sentinel_scalar(dt))
+                 for dt in gathered)
+    caps = (nk + ng + 1) * K + 2 * nk + 1
+    out = caps + K + len(kinds)
+    template = (0,) * (caps + K) + kinds + (0,) * (ng + 4) + dead
+    return _LadderPlan(len(template), template, caps, out, (*gathered, w_dt))
+
+
+class _LadderBuffers(NamedTuple):
+    """The one buffer of a call (:func:`_ladder_buffers`)."""
+
+    carve: _Carve  # gathered columns, w, qrow, (valid,) total
+    out_slots: tuple  # each output's slot, from the plan's first output's
+    n_scratch: int  # int64 elements of the kernel's scratch
+
+
+@functools.lru_cache(maxsize=64)
+def _ladder_buffers(K: int, m: int, out_cap: int, out_dtypes: tuple,
+                    join: bool) -> _LadderBuffers:
+    """The outputs of a call of K levels, m queries and ``out_cap`` slots
+    whose gathered columns and w have ``out_dtypes``, and its scratch."""
+    ng = len(out_dtypes) - 1
+    shapes = [(dt, out_cap) for dt in out_dtypes] + [(torch.int32, out_cap)]
+    if join:
+        shapes.append((torch.bool, out_cap))
+    shapes.append((torch.int64, None))
+    n_scratch = load_library("ladder_consumer").ladder_scratch_elems(K, m)
+    slots = tuple(range(ng + 2)) + ((ng + 2,) if join else ()) + (ng + 3,)
+    return _LadderBuffers(_carve_plan(shapes), slots, n_scratch)
+
+
 def _ladder_consumer(key_tabs, gather_tabs, weight_tab, qlo_cols, qhi_cols,
                      qmask: torch.Tensor, out_cap: int, join: bool):
-    """One launch of csrc/ladder_consumer.cu. Returns raw ``(qrow int32,
-    gathered int64 cols, w int64, total)``: slots at or past ``total``
-    hold zeros; ``total`` is the unclamped match count (0-d, on the
-    device)."""
+    """One call of csrc/ladder_consumer.cu (its ``LADDER_KERNELS``
+    launches on the current stream). ``qhi_cols`` None: the upper
+    queries are the lower ones. Returns ``(gathered cols, w, qrow,
+    total)``, and ``valid`` before ``total`` for a join, each at its final
+    dtype with its dead slots written; ``total`` is the unclamped match
+    count (0-d, on the device)."""
     what = "join_ladder" if join else "gather_ladder"
     dev = _cuda_device(qmask, what)
     K, nk, m = len(weight_tab), len(qlo_cols), qmask.shape[0]
-    ng = len(gather_tabs[0])
+    ng = len(gather_tabs[0]) if K else 0
     if not (K >= 1 and nk >= 1 and m >= 1 and out_cap >= 1):
         raise ValueError(f"{what}: needs levels, key columns, queries and "
                          f"out_cap >= 1 (K={K}, nk={nk}, m={m}, "
                          f"out_cap={out_cap})")
-    if nk > MAX_COLS:
-        raise ValueError(f"{what}: {nk} key columns exceed {MAX_COLS}")
-    q = (nk + ng + 1) * K
-    caps = q + 2 * nk + 1
-    out = caps + K
-    args = _ArgBlock(dev, out + ng, what)
-    for k in range(K):
-        for c in range(nk):
-            args.col(c * K + k, key_tabs[k][c])
-        for c in range(ng):
-            args.col((nk + c) * K + k, gather_tabs[k][c])
-        args.col((nk + ng) * K + k, weight_tab[k])
-        args.slots[caps + k] = weight_tab[k].shape[0]
-    for c in range(nk):
-        args.col(q + c, qlo_cols[c])
-        args.col(q + nk + c, qhi_cols[c])
-    args.col(q + 2 * nk, qmask)
-    gathered = tuple(args.out(out + c, out_cap) for c in range(ng))
-    qrow = torch.empty((out_cap,), dtype=torch.int32, device=dev)
-    w = torch.empty((out_cap,), dtype=torch.int64, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    lib = load_library("ladder_consumer")
-    scratch = torch.empty((lib.ladder_scratch_elems(K, m),),
-                          dtype=torch.int64, device=dev)
-    args.launch(lib.ladder_consumer, K, nk, ng, m, out_cap, int(join),
-                qrow.data_ptr(), w.data_ptr(), total.data_ptr(),
-                scratch.data_ptr())
+    if nk > MAX_COLS or K * m >= 1 << 31:
+        raise ValueError(f"{what}: at most {MAX_COLS} key columns and 2^31 "
+                         f"(level, query) pairs (nk={nk}, K={K}, m={m})")
+    if any(len(t) != nk for t in key_tabs) or \
+            any(len(t) != ng for t in gather_tabs):
+        raise ValueError(f"{what}: every level needs {nk} key and {ng} "
+                         f"gathered columns")
+    same_hi = qhi_cols is None
+    cols = (*(t[c] for c in range(nk) for t in key_tabs),
+            *(t[c] for c in range(ng) for t in gather_tabs), *weight_tab,
+            *qlo_cols, *(qlo_cols if same_hi else qhi_cols), qmask)
+    plan = _ladder_plan(K, nk, ng, tuple(c.dtype for c in cols), join,
+                        same_hi)
+    bufs = _ladder_buffers(K, m, out_cap, plan.out_dtypes, join)
+    args = _ArgBlock(dev, plan.n_slots, what)
+    args.slots[:] = plan.template
+    args.ptrs(0, cols)
+    args.slots[plan.caps:plan.caps + K] = tuple(t.shape[0]
+                                                for t in weight_tab)
+    buf = torch.empty((bufs.carve.n_out + bufs.n_scratch,),
+                      dtype=torch.int64, device=dev)
+    base = buf.data_ptr()
+    for slot, off in zip(bufs.out_slots, bufs.carve.byte_offsets):
+        args.slots[plan.out + slot] = base + off
+    args.launch(load_library("ladder_consumer").ladder_consumer, K, nk, ng,
+                m, out_cap, int(join), int(same_hi),
+                base + 8 * bufs.carve.n_out)
     LAUNCHES[what] += 1
-    return qrow, gathered, w, total
+    return _carve(buf, bufs.carve)
 
 
 def join_ladder(delta_keys: Cols, delta_w: torch.Tensor,
@@ -489,13 +598,11 @@ def join_ladder(delta_keys: Cols, delta_w: torch.Tensor,
     unclamped match count."""
     if _on_cpu(delta_w):
         return join_ladder_plain(delta_keys, delta_w, levels, nk, out_cap)
-    qrow, gathered, w, total = _ladder_consumer(
+    *lvals, w, qrow, valid, total = _ladder_consumer(
         [lvl.keys[:nk] for lvl in levels], [lvl.vals for lvl in levels],
-        [lvl.weights for lvl in levels], delta_keys, delta_keys, delta_w,
+        [lvl.weights for lvl in levels], delta_keys, None, delta_w,
         out_cap, join=True)
-    valid = torch.arange(out_cap, device=w.device) < total
-    lvals = tuple(c.to(v.dtype) for c, v in zip(gathered, levels[0].vals))
-    return qrow, lvals, w.to(delta_w.dtype), valid, total
+    return qrow, tuple(lvals), w, valid, total
 
 
 def join_ladder_plain(delta_keys: Cols, delta_w: torch.Tensor,
@@ -512,7 +619,9 @@ def join_ladder_plain(delta_keys: Cols, delta_w: torch.Tensor,
     (lw,) = _select_gather([(lvl.weights,) for lvl in levels], level,
                                   src)
     w = torch.where(valid, delta_w[qrow] * lw, 0).to(delta_w.dtype)
-    rvals = tuple(torch.where(valid, c, 0) for c in _select_gather(
+    # masked_fill keeps a bool column bool (where(valid, c, 0) would
+    # promote it to int64)
+    rvals = tuple(c.masked_fill(~valid, 0) for c in _select_gather(
         [lvl.vals for lvl in levels], level, src))
     qrow = torch.where(valid, qrow, 0).to(torch.int32)
     return qrow, rvals, w, valid, total
@@ -535,17 +644,12 @@ def gather_ladder(qkeys: Cols, qlive: torch.Tensor, levels: Sequence,
         return gather_ladder_plain(qkeys, qlive, levels, out_cap, qhi_keys,
                                    gather_keys)
     nk = len(qkeys)
-    gtabs = _gather_tabs(levels, nk, gather_keys)
-    qrow, gathered, w, total = _ladder_consumer(
-        [lvl.keys[:nk] for lvl in levels], gtabs,
-        [lvl.weights for lvl in levels], qkeys,
-        qkeys if qhi_keys is None else qhi_keys, qlive, out_cap, join=False)
-    dead = torch.arange(out_cap, device=w.device) >= total
-    vals = tuple(c.to(g.dtype).masked_fill(
-        dead, kernels.sentinel_scalar(g.dtype))
-        for c, g in zip(gathered, gtabs[0]))
-    qrow = qrow.masked_fill(dead, qlive.shape[-1])
-    return (qrow, vals, w.to(levels[0].weights.dtype)), total
+    *vals, w, qrow, total = _ladder_consumer(
+        [lvl.keys[:nk] for lvl in levels],
+        _gather_tabs(levels, nk, gather_keys),
+        [lvl.weights for lvl in levels], qkeys, qhi_keys, qlive, out_cap,
+        join=False)
+    return (qrow, tuple(vals), w), total
 
 
 def gather_ladder_plain(qkeys: Cols, qlive: torch.Tensor, levels: Sequence,
@@ -792,15 +896,8 @@ class _AggPlan(NamedTuple):
 
     n_slots: int
     template: tuple  # every slot but the columns' and outputs' pointers
-    n_outs: int  # outputs of the 10-tuple, flattened
-    # the outputs of one dtype lie side by side in the buffer: per dtype
-    # (dtype, first and last int64 element, its outputs' indices, their
-    # lengths and the padding after them)
-    regions: tuple
-    zero_d: tuple  # the outputs that are 0-d tensors
-    byte_offsets: tuple  # each output's place in the buffer
+    carve: _Carve  # the outputs of the 10-tuple, flattened
     r0: int  # the slot of the first output's pointer
-    n_out: int  # int64 elements of the outputs
     n_scratch: int  # int64 elements of the kernel's scratch
     dims: tuple  # the launcher's integer arguments
 
@@ -842,12 +939,8 @@ def _agg_plan(dev: torch.device, nk: int, spec: tuple, fast: bool,
               (torch.bool, q_cap), *((dt, q_cap) for dt in lad_dts),
               (torch.bool, q_cap), *((dt, nq) for dt in d_dts),
               (torch.bool, nq), (torch.int64, None))
-    kinds = []
-    for dt in (*d_dt, *o_dt, *l_dt, *(dt for dt, _ in shapes)):
-        if dt not in _KINDS:
-            raise ValueError(f"{what}: integer columns of 1, 2, 4 or 8 "
-                             f"bytes and bool columns only, got {dt}")
-        kinds.append(_KINDS[dt])
+    kinds = [_kind(dt, what)
+             for dt in (*d_dt, *o_dt, *l_dt, *(dt for dt, _ in shapes))]
     ops = []
     for op, col in spec:
         minmax = op in ("min", "max")
@@ -859,17 +952,6 @@ def _agg_plan(dev: torch.device, nk: int, spec: tuple, fast: bool,
                 + tuple(int(kernels.sentinel_scalar(dt)) for dt in d_dt[:nk])
                 + tuple(_seg_ident("max", dt) for dt in o_dt[nk:-1])
                 + (0,) * len(shapes) + tuple(kinds[nd + no + nd:]))
-    regions, byte_offsets, off = [], [0] * len(shapes), 0
-    for dtype in dict.fromkeys(dt for dt, _ in shapes):
-        idx = tuple(x for x, (dt, _) in enumerate(shapes) if dt == dtype)
-        sizes = tuple(shapes[x][1] or 1 for x in idx)
-        per, at = 8 // dtype.itemsize, 0
-        for x, n in zip(idx, sizes):
-            byte_offsets[x] = 8 * off + at * dtype.itemsize
-            at += n
-        n64 = max(1, -(-at // per))
-        regions.append((dtype, off, off + n64, idx, sizes, n64 * per - at))
-        off += n64
     lib = load_library("agg_ladder")
     with torch.cuda.device(dev):
         n_scratch = lib.agg_ladder_scratch_elems(K, nops, m, q_cap,
@@ -877,10 +959,9 @@ def _agg_plan(dev: torch.device, nk: int, spec: tuple, fast: bool,
     if n_scratch < 0:
         raise RuntimeError(f"{what}: no block of the kernel fits on {dev}")
     avg = any(op == "avg" for op, _ in spec)
-    return _AggPlan(len(template), template, len(shapes), tuple(regions),
-                    tuple(x for x, (_, n) in enumerate(shapes) if n is None),
-                    tuple(byte_offsets), len(template) - 2 * len(shapes), off,
-                    n_scratch, (K, nk, nv, nops, m, ocap, q_cap, qn,
+    return _AggPlan(len(template), template, _carve_plan(shapes),
+                    len(template) - 2 * len(shapes), n_scratch,
+                    (K, nk, nv, nops, m, ocap, q_cap, qn,
                                 gather_cap, int(fast), int(avg)))
 
 
@@ -919,20 +1000,15 @@ def agg_ladder(delta, nk: int, out_trace, levels: Sequence, agg, q_cap: int,
     nd = len(cols[0])
     args.ptrs(0, (*cols[0], *cols[1],
                   *(lc[c] for c in range(nd) for lc in cols[2:])))
-    buf = torch.empty((plan.n_out + plan.n_scratch,), dtype=torch.int64,
+    c = plan.carve
+    buf = torch.empty((c.n_out + plan.n_scratch,), dtype=torch.int64,
                       device=dev)
     base = buf.data_ptr()
-    args.slots[plan.r0:plan.r0 + plan.n_outs] = tuple(
-        base + off for off in plan.byte_offsets)
-    outs = [None] * plan.n_outs
-    for dtype, lo, hi, idx, sizes, pad in plan.regions:
-        parts = buf[lo:hi].view(dtype).split_with_sizes((*sizes, pad))
-        for x, part in zip(idx, parts):
-            outs[x] = part
-    for x in plan.zero_d:
-        outs[x] = outs[x][0]
+    args.slots[plan.r0:plan.r0 + c.n] = tuple(base + off
+                                              for off in c.byte_offsets)
+    outs = _carve(buf, c)
     args.launch(load_library("agg_ladder").agg_ladder, *plan.dims,
-                flag.data_ptr(), base + 8 * plan.n_out)
+                flag.data_ptr(), base + 8 * c.n_out)
     LAUNCHES[what] += 1
     nops = len(spec)
     qkeys, (qlive, nq), rest = tuple(outs[:nk]), outs[nk:nk + 2], \

@@ -114,8 +114,11 @@ def test_profile_query_knows_every_kernel():
     events = {
         "void (anonymous namespace)::probe_ladder_kernel<true>(Args, int, "
         "int, long, int*)": "probe_ladder_kernel",
-        "_ZN12_GLOBAL__N_112probe_kernelE4Args6Layoutlplb": "probe_kernel",
-        "_ZN12_GLOBAL__N_113gather_kernelE4Args6Layoutllil": "gather_kernel",
+        "_ZN12_GLOBAL__N_121consumer_probe_kernelI4ArgsEEvT_NS_4DimsEPx":
+        "consumer_probe_kernel",
+        "void (anonymous namespace)::consumer_expand_kernel<ArgTable>("
+        "ArgTable, (anonymous namespace)::Dims, long long const*)":
+        "consumer_expand_kernel",
         "void at::native::vectorized_gather_kernel<16, long>(char*, char*, "
         "long*, int, long, long, long, long, bool)": None,
         "void at::native::vectorized_elementwise_kernel<4, "

@@ -878,3 +878,278 @@ def test_argument_block_takes_any_ladder_depth():
     small = cuda_kernels._ArgBlock(torch.device("cpu"),
                                    cuda_kernels.ARGS_MAX, "test")
     assert small.by_value
+
+
+# ---------------------------------------------------------------------------
+# The ladder consumer (join_ladder / gather_ladder): narrow columns, long
+# and empty ranges, the clamp inside a range, and the kernel's plan
+# ---------------------------------------------------------------------------
+
+
+def _cast(b: Batch, key_dts, val_dts, w_dt) -> Batch:
+    """``b`` with its key and value columns and weights stored at numpy
+    dtypes ``key_dts``, ``val_dts`` and ``w_dt``; dead rows keep each
+    dtype's sentinel. Casts of non-negative values are monotone, so the
+    rows stay sorted."""
+    live = np.asarray(b.weights) != 0
+
+    def cast(c, dt):
+        top = True if dt == np.bool_ else np.iinfo(dt).max
+        return jnp.asarray(np.where(live, np.asarray(c).astype(dt), top)
+                           .astype(dt))
+
+    return Batch(tuple(cast(c, dt) for c, dt in zip(b.keys, key_dts)),
+                 tuple(cast(c, dt) for c, dt in zip(b.vals, val_dts)),
+                 jnp.asarray(np.asarray(b.weights).astype(w_dt)),
+                 runs=b.runs)
+
+
+def _port_exact(b: Batch) -> TBatch:
+    """The reference batch as a port batch on the CPU, its weights kept at
+    their dtype (``_port`` loads them as int64)."""
+    return TBatch(tuple(_t(k) for k in b.keys), tuple(_t(v) for v in b.vals),
+                  _t(b.weights), runs=b.runs)
+
+
+def _assert_join(ladder, delta_keys, delta_w, nk, out_cap):
+    """join_ladder (plain, on the CPU) against join_ladder_pallas; returns
+    the total."""
+    want = pallas_kernels.join_ladder_pallas(delta_keys, delta_w, ladder,
+                                             nk, out_cap)
+    got = cuda_kernels.join_ladder(tuple(_t(k) for k in delta_keys),
+                                   _t(delta_w),
+                                   [_port_exact(b) for b in ladder], nk,
+                                   out_cap)
+    _assert_same(got[0], want[0], "qrow")
+    assert len(got[1]) == len(want[1])
+    for g, e in zip(got[1], want[1]):
+        _assert_same(g, e, "level vals")
+    _assert_same(got[2], want[2], "w")
+    _assert_same(got[3], want[3], "valid")
+    assert int(got[4]) == int(want[4])
+    return int(got[4])
+
+
+def _assert_gather(ladder, qkeys, qlive, out_cap, qhi=None, gk=0):
+    """gather_ladder (plain, on the CPU) against gather_ladder_pallas;
+    returns the total."""
+    (wq, wv, ww), wtotal = pallas_kernels.gather_ladder_pallas(
+        qkeys, qlive, ladder, out_cap, qhi_keys=qhi, gather_keys=gk)
+    (qrow, vals, w), total = cuda_kernels.gather_ladder(
+        tuple(_t(k) for k in qkeys), _t(qlive),
+        [_port_exact(b) for b in ladder], out_cap,
+        qhi_keys=None if qhi is None else tuple(_t(k) for k in qhi),
+        gather_keys=gk)
+    _assert_same(qrow, wq, "qrow")
+    assert len(vals) == len(wv)
+    for g, e in zip(vals, wv):
+        _assert_same(g, e, "vals")
+    _assert_same(w, ww, "w")
+    assert int(total) == int(wtotal)
+    return int(total)
+
+
+def _assert_consumer(ladder, delta, nk, out_caps, qhi=None):
+    """Both entry points, the gather in its three modes, at every cap."""
+    qkeys = delta.keys[:nk]
+    qlive = jnp.asarray(np.asarray(delta.weights) != 0)
+    totals = []
+    for out_cap in out_caps:
+        totals.append(_assert_join(ladder, qkeys, delta.weights, nk,
+                                   out_cap))
+        _assert_gather(ladder, qkeys, qlive, out_cap)
+        _assert_gather(ladder, qkeys, qlive, out_cap, gk=nk)
+        if qhi is not None:
+            _assert_gather(ladder, qkeys, qlive, out_cap, qhi=qhi)
+    return totals
+
+
+I8, I16, I32, BOOL, U8 = np.int8, np.int16, np.int32, np.bool_, np.uint8
+
+
+# (key dtypes, value dtypes, level weights, query keys, delta weights,
+# key range)
+NARROW = {
+    "int32 keys, values of every width": (
+        (I32,), (I8, I16, I32, BOOL, U8), I32, (I32,), I16, 40),
+    "int16 keys, int64 queries": ((I16, I16), (I64,), I64, (I64, I64), I64,
+                                  9),
+    "int8 keys and weights": ((I8,), (BOOL, I8), I8, (I8,), I8, 30),
+    "bool key": ((BOOL, I64), (I16, U8), I16, (BOOL, I32), I32, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(NARROW))
+def test_ladder_consumer_narrow_columns_plain_equals_pallas(
+        pallas_interpret, case):
+    """Key, value, weight and query columns of int8, int16, int32 and bool
+    (the kernel reads each at its own width and writes its outputs at
+    their final dtypes)."""
+    key_dts, val_dts, w_dt, q_dts, dw_dt, kr = NARROW[case]
+    rng = np.random.default_rng(70)
+    nk, nv = len(key_dts), len(val_dts)
+    ladder = [_cast(_consolidated(rng, n, cap, nk=nk, nv=nv, key_range=kr),
+                    key_dts, val_dts, w_dt)
+              for n, cap in ((60, 64), (20, 32), (5, 8))]
+    delta = _cast(_consolidated(rng, 25, 32, nk=nk, nv=0, key_range=kr),
+                  q_dts, (), dw_dt)
+    qhi = tuple(jnp.asarray(np.minimum(
+        np.asarray(k).astype(np.int64) + rng.integers(0, 3, k.shape[0]),
+        1 if k.dtype == jnp.bool_ else np.iinfo(k.dtype).max)
+        .astype(k.dtype)) for k in delta.keys)
+    totals = _assert_consumer(ladder, delta, nk, (256, 5), qhi)
+    assert max(totals) > 5  # the small cap overflows
+
+
+def _hot_ladder(rng, hot_rows=(1500, 600)):
+    """Two levels of one-key rows with one hot key (7) holding
+    ``hot_rows`` rows: its ranges are longer than the kernel's expansion
+    tile."""
+    out = []
+    for hot, (n, cap) in zip(hot_rows, ((200, 2048), (100, 1024))):
+        keys = np.concatenate([rng.integers(0, 50, n), np.full(hot, 7)])
+        vals = rng.integers(0, 1 << 20, n + hot)
+        w = rng.integers(1, 3, n + hot)
+        out.append(Batch.from_columns([keys.astype(np.int64)],
+                                      [vals.astype(np.int64),
+                                       (vals % 7).astype(np.int32)],
+                                      w.astype(np.int64), cap=cap))
+    return out
+
+
+def _consumer_case(name, rng):
+    """(ladder, delta, out_caps, totals wanted: "positive" or "zero")."""
+    if name in ("hot key", "out_cap inside a range"):
+        ladder = _hot_ladder(rng)
+        delta = Batch.from_columns([np.array([3, 7, 9, 40], np.int64)], [],
+                                   np.array([1, 2, -1, 1], np.int64), cap=8)
+        lvl0 = np.asarray(ladder[0].keys[0])
+        before = int(np.count_nonzero(lvl0 == 3))
+        hot = int(np.count_nonzero(lvl0 == 7))
+        if name == "hot key":
+            return ladder, delta, (4096, cuda_kernels.LADDER_TILE), \
+                "positive"
+        # caps that end inside the hot key's level-0 range
+        return ladder, delta, (before + 1, before + hot // 2,
+                               before + hot - 1), "positive"
+    ladder = [_consolidated(rng, n, cap, key_range=30)
+              for n, cap in ((60, 64), (20, 32))]
+    if name == "queries past every key":
+        delta = Batch.from_columns([np.arange(100, 120), np.zeros(20)],
+                                   [], np.ones(20, np.int64), cap=32)
+    else:  # every query dead
+        d = _consolidated(rng, 20, 32, key_range=30)
+        delta = Batch(d.keys, d.vals, jnp.zeros_like(d.weights), d.runs)
+    return ladder, delta, (16, 1), "zero"
+
+
+@pytest.mark.parametrize("case", ["hot key", "out_cap inside a range",
+                                  "queries past every key",
+                                  "every query dead"])
+def test_ladder_consumer_cases_plain_equals_pallas(pallas_interpret, case):
+    """A hot key whose ranges span more than one expansion tile, out_cap
+    ending inside a range, and ladders where every range is empty (total
+    0, every slot dead)."""
+    rng = np.random.default_rng(71)
+    ladder, delta, out_caps, want = _consumer_case(case, rng)
+    nk = len(delta.keys)
+    totals = _assert_consumer(ladder, delta, nk, out_caps)
+    if want == "zero":
+        assert totals == [0] * len(out_caps)
+    else:
+        assert min(totals) > cuda_kernels.LADDER_TILE
+        assert max(out_caps) > min(totals) or case != "hot key"
+
+
+def _ladder_layout():
+    """csrc/ladder_consumer.cu's ``Layout``, its slot formulas evaluated
+    in Python: ``layout(K, nk, ng)`` has the kernel's methods."""
+    import re
+
+    src = _csrc("ladder_consumer.cu")
+    body = re.search(r"struct Layout \{(.*?)\n\};", src, re.S).group(1)
+    methods = re.findall(r"int (\w+)\(([^)]*)\) const \{(?:\s*//[^\n]*)?"
+                         r"\s*return ([^;]+);", body)
+    assert {"caps", "kinds", "out", "dead", "n_slots"} <= \
+        {name for name, _, _ in methods}
+
+    class Layout:
+        def __init__(self, K, nk, ng):
+            self.K, self.nk, self.ng = K, nk, ng
+
+    for name, params, expr in methods:
+        args = ", ".join(p.split()[-1] for p in params.split(",") if p)
+        expr = re.sub(r"\b(\w+)\(", r"self.\1(", expr)
+        expr = re.sub(r"\b(K|nk|ng)\b", r"self.\1", expr)
+        scope = {}
+        exec(f"def {name}(self{', ' if args else ''}{args}):\n"
+             f"    return {expr}", scope)
+        setattr(Layout, name, scope[name])
+    return Layout
+
+
+def test_ladder_consumer_constants_match_the_kernel():
+    """The wrapper's warp tile and launch count are
+    csrc/ladder_consumer.cu's, and the argument block its plan builds has
+    the kernels' layout: the level caps, the columns' kinds, the outputs
+    and the dead-slot values where the kernels read them, for joins and
+    gathers of several shapes."""
+    import re
+
+    src = _csrc("ladder_consumer.cu")
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert consts["WARP_TILE"] == "32 * ITEMS"
+    assert 32 * int(consts["ITEMS"]) == cuda_kernels.LADDER_TILE
+    launches = src[src.index("int launch("):]
+    assert launches[:launches.index("\n}\n")].count("<<<") == \
+        cuda_kernels.LADDER_KERNELS
+    assert '#include "common.cuh"' in src and "equal_range(" in src
+    Layout = _ladder_layout()
+    i8, i32, i64, b1 = torch.int8, torch.int32, torch.int64, torch.bool
+    for K, nk, ng, join in ((1, 1, 0, True), (2, 1, 4, True),
+                            (3, 2, 1, False), (100, 1, 4, False)):
+        key_dts, g_dts = (i32, i64)[:nk], (i8, b1, i64, i32)[:ng]
+        q_dts = (i64,) * nk * 2 + ((i32,) if join else (b1,))
+        dtypes = (*(dt for dt in key_dts for _ in range(K)),
+                  *(dt for dt in g_dts for _ in range(K)), *(i64,) * K,
+                  *q_dts)
+        plan = cuda_kernels._ladder_plan(K, nk, ng, dtypes, join, False)
+        L = Layout(K, nk, ng)
+        assert plan.n_slots == L.n_slots()
+        assert plan.caps == L.caps() and plan.out == L.out()
+        assert len(dtypes) == L.caps()  # every pointer slot before the caps
+        kinds = cuda_kernels._KINDS
+        t = plan.template
+        assert [t[L.kinds() + c] for c in range(nk)] == \
+            [kinds[dt] for dt in key_dts]
+        assert [t[L.gathered_kind(c)] for c in range(ng)] == \
+            [kinds[dt] for dt in g_dts]
+        assert t[L.weights_kind()] == kinds[i64]
+        assert [t[L.q_kind(c)] for c in range(2 * nk + 1)] == \
+            [kinds[dt] for dt in q_dts]
+        dead = [t[L.dead() + c] for c in range(ng)]
+        assert dead == ([0] * ng if join else
+                        [int(cuda_kernels.kernels.sentinel_scalar(dt))
+                         for dt in g_dts])
+        assert plan.out_dtypes == (*g_dts, q_dts[-1] if join else i64)
+        assert (plan.n_slots <= cuda_kernels.ARGS_MAX) == (K < 100)
+
+
+def test_ladder_plan_refuses_what_the_kernel_does_not_take():
+    """The plan takes integer and bool columns of 1-8 bytes and one dtype
+    per column across the levels; a float column or levels whose column
+    dtypes differ raise ValueError before any launch."""
+    i32, i64 = torch.int32, torch.int64
+    ok = (i64, i64, i32, i32, i64, i64, i64, i64, i64)  # K=2, nk=1, ng=1
+    assert cuda_kernels._ladder_plan(2, 1, 1, ok, True, True).out_dtypes == \
+        (i32, i64)
+    with pytest.raises(ValueError, match="bool columns only"):
+        cuda_kernels._ladder_plan(2, 1, 1, (*ok[:2], torch.float32,
+                                            torch.float32, *ok[4:]),
+                                  True, True)
+    with pytest.raises(ValueError, match="bool columns only"):
+        cuda_kernels._ladder_plan(2, 1, 1, (*ok[:-1], torch.float64), True,
+                                  True)
+    with pytest.raises(ValueError, match="share a dtype"):
+        cuda_kernels._ladder_plan(2, 1, 1, (*ok[:2], i32, i64, *ok[4:]),
+                                  False, True)
