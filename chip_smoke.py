@@ -46,28 +46,48 @@ Phases, each of which fails the run (nonzero exit, no result line):
 4. queries — Nexmark q4, q3, q8 and q15, one after the other, each on the
              host runtime on the card at 100,000 events per tick: 4 warm
              ticks then 20 measured (2,000,000 events, a cut of Nexmark's
-             usual 100M made for the run's time limit), with the launch
-             counts set to 0 just before each query's run and read just
-             after it (and per measured tick), the kernels its path must
-             launch checked (distinct's lookup: one lex-probe launch per
-             measured tick), and the accumulated output held against a
-             numpy oracle of the query over all events;
-4b. compiled — Nexmark q4 and q3 on the compiled engine, events generated
-             on the card (device_gen), 100,000 events per tick, the
-             reference bench's protocol: 4 warm ticks validated every
+             usual 100M made for the run's time limit); then q0, q1, q2,
+             q13, q14, q17, q20, q21 and q22 the same way at a smaller
+             depth, 2 warm ticks then 6 measured, and q12 at 4 warm and 8
+             measured (across the end of its first 10-tick window). Each
+             query's launch counts are set to 0 just before its run and
+             read just after it (and per measured tick), the kernels its
+             path must launch are checked (q0, q1, q2, q14, q21 and q22
+             are maps and filters that launch none of the port's
+             kernels; distinct's lookup: one lex-probe launch per
+             measured tick), and the accumulated output is held against
+             a numpy oracle of the query over all events (q12's
+             simulates its 10-tick windows, q13's joins the 16-row side
+             table);
+4b. compiled — Nexmark q4, q3 and q8 on the compiled engine, events
+             generated on the card (device_gen), 100,000 events per tick,
+             the reference bench's protocol: 4 warm ticks validated every
              tick, presize, one more tick, then 24 measured ticks
              validated every 8, pipelined; then 8 more ticks under the
-             profiler for the card's busy share. Launch counts are set to
-             0 just before each query's run and read just after it. Every
-             tick's output equals the port's host engine on the card for
-             the same events, and the integrated output equals the numpy
-             oracle. Host syncs inside the measured ticks are counted with
-             torch.cuda.set_sync_debug_mode("warn") (its one-time
-             prototype notice is listed apart), and the device ms per
-             profiled tick of each of the port's kernels;
-5. cross   — for each query, the first 3 ticks of 10,000 events through
-             the port on the CPU (plain versions) and on the card: equal
-             rows per tick;
+             profiler for the card's busy share; q17 (the general Min and
+             Max in agg_ladder, joins over aggregate outputs) the same way
+             at 3 warm and 8 measured ticks, 4 profiled. Launch counts are
+             set to 0 just before each query's run and read just after it.
+             Every tick's output equals the port's host engine on the card
+             for the same events, and the integrated output equals the
+             numpy oracle. Host syncs inside the measured ticks are counted
+             with torch.cuda.set_sync_debug_mode("warn") (its one-time
+             prototype notice is listed apart) and must be 0; compiled
+             q8's distinct must launch the lex probe once per measured
+             tick, and its probe's level and argument-slot counts are
+             printed, with the device ops of one old-weights lookup (the
+             probe and the per-level sum after it) and their share of the
+             tick's. Printed: events/s, p50/p99, busy share, device ops
+             per tick and the device ms per profiled tick of each of the
+             port's kernels;
+4c. algebra — a feeds-mode circuit of plus, minus, neg, sum_with,
+             stream_distinct and distinct, compiled on the card, pushed
+             20,000 random rows per input per tick for 5 ticks (grow,
+             restore and replay on overflow): every tick equal to the same
+             circuit on the host engine on the card;
+5. cross   — for each host query, the first 3 ticks of 10,000 events
+             through the port on the CPU (plain versions) and on the card:
+             equal rows per tick;
 6. timing  — each kernel, its plain version and (where one exists) one
              PyTorch library call, on the largest inputs the queries gave
              it: ``ms`` per call by CUDA events (host gaps between
@@ -99,6 +119,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
              CUDA graph and replayed: equal to the eager call, or the
              capture's refusal reported.
 
+Each phase prints its wall time on a line of its own ("phase ...: s").
 Output: the phase summaries, then one line {"kernels": [...]}, then the
 nvidia-smi line, then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -163,13 +184,29 @@ QUERIES = {
     "q3": ("join_ladder", "rank_merge"),
     "q8": ("lex_probe_ladder", "join_ladder", "rank_merge"),
     "q15": ("lex_probe_ladder", "gather_ladder", "rank_merge"),
+    # maps and filters: no kernel of the port on their path
+    "q0": (), "q1": (), "q2": (), "q14": (), "q21": (), "q22": (),
+    "q12": ("gather_ladder", "rank_merge"),
+    "q13": ("join_ladder", "rank_merge"),
+    "q17": ("join_ladder", "gather_ladder", "segment_reduce", "rank_merge"),
+    "q20": ("join_ladder", "rank_merge"),
 }
+# (warm, measured) ticks of a host query, where not WARM_TICKS, TICKS
+HOST_DEPTH = {q: (2, 6) for q in ("q0", "q1", "q2", "q13", "q14", "q17",
+                                  "q20", "q21", "q22")}
+HOST_DEPTH["q12"] = (4, 8)  # 12 ticks: across a 10-tick window's end
 # the compiled engine's paths, driven after the host engine's
 COMPILED = {
     "q4": ("join_ladder", "agg_ladder", "gather_ladder", "rank_merge"),
     "q3": ("join_ladder", "rank_merge"),
+    "q8": ("lex_probe_ladder", "join_ladder", "rank_merge"),
+    "q17": ("agg_ladder", "join_ladder", "gather_ladder", "rank_merge"),
 }
 C_WARM, C_TICKS, C_VALIDATE, C_PROFILE = 4, 24, 8, 8
+# (warm, measured, profiled) ticks of a compiled query, where not C_WARM,
+# C_TICKS, C_PROFILE
+COMPILED_DEPTH = {"q17": (3, 8, 4)}
+ALGEBRA_TICKS, ALGEBRA_ROWS = 5, 20_000
 # torch's sync debug mode warns at each host sync ("called a synchronizing
 # CUDA operation"); the first time it is switched on it also warns that it
 # "is a prototype feature and does not yet detect all synchronizing
@@ -184,6 +221,19 @@ def fail(msg: str) -> None:
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+@contextlib.contextmanager
+def phase(label: str):
+    """Print the wall time of the enclosed phase on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    say(f"phase {label}: {time.perf_counter() - t0:.3f} s")
+
+
+# nvidia-smi's name and power limit of the card, set in main() and
+# printed beside every query's numbers
+CARD = [""]
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +720,36 @@ def check_cap0_and_wide(ck: Checker, rng, dev) -> None:
                  delta.keys, delta.weights != 0, wide, out_cap)
     if ck_mod._ArgBlock(dev, 606, "check").by_value:
         fail("a 606-slot launch did not take the device table")
+    # the device table's upload (pinned host copy, asynchronous) must not
+    # make the host wait: compiled distinct's probe may cross ARGS_MAX
+    tables = [lvl.cols for lvl in probe_ladder]
+    torch.cuda.synchronize()
+    found = sync_warnings(lambda: ck_mod.lex_probe_ladder_both(tables,
+                                                               q.cols))
+    if found:
+        fail(f"a probe over 606 argument slots synced the host: {found}")
+    say("lex probe over 200 levels (606 argument slots, a device table): "
+        "0 host syncs under torch.cuda.set_sync_debug_mode('warn')")
+
+
+def sync_warnings(fn) -> list:
+    """The host syncs ``fn`` makes on the card, as the warnings of
+    torch.cuda.set_sync_debug_mode("warn") (its one-time prototype notice
+    left out)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message)[:160] for w in caught
+            if "ynchroniz" in str(w.message)
+            and SYNC_NOTICE not in str(w.message)]
 
 
 def launch_checked(name: str, entry: str | None = None):
@@ -1159,8 +1239,142 @@ def q15_oracle(cols) -> dict:
     return {(int(d), int(c)): 1 for d, c in zip(days, counts)}
 
 
+def count_rows(*cols) -> dict:
+    """{row tuple: multiplicity} of the rows the columns make."""
+    if not len(cols[0]):
+        return {}
+    rows, counts = np.unique(np.stack([np.asarray(c, np.int64)
+                                       for c in cols], 1),
+                             axis=0, return_counts=True)
+    return {tuple(r): int(c) for r, c in zip(rows.tolist(), counts.tolist())}
+
+
+def bid_cols(cols):
+    b = cols["bids"]
+    return b["auction"], b["bidder"], b["price"], b["channel"], b["date_time"]
+
+
+def q0_oracle(cols) -> dict:
+    """Every bid, as it came."""
+    return count_rows(*bid_cols(cols))
+
+
+def q1_oracle(cols) -> dict:
+    """Every bid with its price in milli-euros (price * 908 // 1000)."""
+    auction, bidder, price, channel, ts = bid_cols(cols)
+    return count_rows(auction, bidder, price * 908 // 1000, channel, ts)
+
+
+def q2_oracle(cols) -> dict:
+    """(auction, price) of the bids on auctions whose id is a multiple of
+    123."""
+    auction, _, price, _, _ = bid_cols(cols)
+    keep = auction % 123 == 0
+    return count_rows(auction[keep], price[keep])
+
+
+def q12_oracle(cols) -> dict:
+    """(bidder, window, bids) per bidder per processing-time window of 10
+    ticks: a tick holds EVENTS_PER_TICK events, 46 of each 50 of them
+    bids, in event order."""
+    from dbsp_tpu_torch.nexmark import model as M
+    from dbsp_tpu_torch.nexmark.queries import Q12_WINDOW_TICKS
+
+    bidder = cols["bids"]["bidder"]
+    per_tick = EVENTS_PER_TICK // M.PROPORTION_DENOMINATOR * M.BID_PROPORTION
+    window = np.arange(len(bidder)) // per_tick // Q12_WINDOW_TICKS
+    return {(*r, n): 1 for r, n in count_rows(bidder, window).items()}
+
+
+def q13_oracle(cols) -> dict:
+    """Every bid joined with the side table channel -> 1000 + channel:
+    (auction, bidder, price, date_time, side value)."""
+    auction, bidder, price, channel, ts = bid_cols(cols)
+    keep = (channel >= 0) & (channel < 16)
+    return count_rows(auction[keep], bidder[keep], price[keep], ts[keep],
+                      1000 + channel[keep])
+
+
+def q14_oracle(cols) -> dict:
+    """Bids over 1M milli-euros: (auction, bidder, eur, time of day class,
+    date_time); class 0 = [8, 18) h, 1 = [0, 6) | [20, 24) h, 2 = other."""
+    auction, bidder, price, _, ts = bid_cols(cols)
+    eur = price * 908 // 1000
+    hour = ts // 3_600_000 % 24
+    kind = np.where((hour >= 8) & (hour < 18), 0,
+                    np.where((hour < 6) | (hour >= 20), 1, 2))
+    keep = eur > 1_000_000
+    return count_rows(auction[keep], bidder[keep], eur[keep], kind[keep],
+                      ts[keep])
+
+
+def q17_oracle(cols) -> dict:
+    """(auction, day, count, min, max, truncated average) of the bid
+    prices per auction per day."""
+    from dbsp_tpu_torch.nexmark.queries import DAY_MS
+
+    auction, _, price, _, ts = bid_cols(cols)
+    keys = np.stack([auction, ts // DAY_MS], 1)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    n = len(uniq)
+    cnt = np.bincount(inv, minlength=n)
+    total = np.zeros(n, np.int64)
+    np.add.at(total, inv, price)
+    lo = np.full(n, np.iinfo(np.int64).max)
+    np.minimum.at(lo, inv, price)
+    hi = np.full(n, np.iinfo(np.int64).min)
+    np.maximum.at(hi, inv, price)
+    avg = np.where(total >= 0, total // cnt, -((-total) // cnt))
+    return {(*k, c, a, b, v): 1 for k, c, a, b, v in zip(
+        uniq.tolist(), cnt.tolist(), lo.tolist(), hi.tolist(),
+        avg.tolist())}
+
+
+def q20_oracle(cols) -> dict:
+    """Bids on category-10 auctions with the auction's item and seller:
+    (auction, bidder, price, item, seller)."""
+    from dbsp_tpu_torch.nexmark.queries import Q3_CATEGORY
+
+    a = cols["auctions"]
+    auction, bidder, price, _, _ = bid_cols(cols)
+    cat = a["category"] == Q3_CATEGORY
+    ids, item, seller = a["id"][cat], a["item"][cat], a["seller"][cat]
+    pos = np.clip(np.searchsorted(ids, auction), 0, max(len(ids) - 1, 0))
+    keep = (ids[pos] == auction) if len(ids) else np.zeros(len(auction),
+                                                           bool)
+    return count_rows(auction[keep], bidder[keep], price[keep],
+                      item[pos][keep], seller[pos][keep])
+
+
+def q21_oracle(cols) -> dict:
+    """(auction, bidder, price, channel, channel id): the channel id is
+    taken over the decoded strings, as the query's CASE and regex."""
+    from dbsp_tpu_torch.nexmark import strings
+
+    auction, bidder, price, channel, _ = bid_cols(cols)
+    ids = {c: strings.channel_id_of(c) for c in np.unique(channel).tolist()}
+    chan_id = np.array([ids[c] for c in channel.tolist()], np.int64)
+    return count_rows(auction, bidder, price, channel, chan_id)
+
+
+def q22_oracle(cols) -> dict:
+    """(auction, bidder, price, dir1, dir2, dir3): the directories split
+    out of the decoded URL string."""
+    from dbsp_tpu_torch.nexmark import strings
+
+    auction, bidder, price, channel, _ = bid_cols(cols)
+    dirs = {c: [int(d[1:]) for d in strings.url_dirs_of(c)]
+            for c in np.unique(channel).tolist()}
+    d = np.array([dirs[c] for c in channel.tolist()], np.int64).reshape(-1, 3)
+    return count_rows(auction, bidder, price, d[:, 0], d[:, 1], d[:, 2])
+
+
 ORACLES = {"q4": q4_oracle, "q3": q3_oracle, "q8": q8_oracle,
-           "q15": q15_oracle}
+           "q15": q15_oracle, "q0": q0_oracle, "q1": q1_oracle,
+           "q2": q2_oracle, "q12": q12_oracle, "q13": q13_oracle,
+           "q14": q14_oracle, "q17": q17_oracle, "q20": q20_oracle,
+           "q21": q21_oracle, "q22": q22_oracle}
 
 
 def build_query(name: str, device=None):
@@ -1249,15 +1463,17 @@ host_metrics: dict = {}  # the host engine's numbers, beside the compiled
 
 
 def run_query(name: str, all_events: dict):
-    """Drive one query on the card for WARM_TICKS + TICKS ticks, with the
-    launch counts set to 0 just before and read just after; hold the
-    accumulated output to the query's oracle. Returns (launches over the
-    run, launches per measured tick)."""
+    """Drive one query on the card for its warm and measured ticks
+    (``HOST_DEPTH``, else WARM_TICKS + TICKS), with the launch counts set
+    to 0 just before and read just after; hold the accumulated output to
+    the query's oracle. Returns (launches over the run, launches per
+    measured tick)."""
     import torch
 
     from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
+    warm_ticks, ticks = HOST_DEPTH.get(name, (WARM_TICKS, TICKS))
     gen = NexmarkGenerator(GeneratorConfig(seed=1))
     handle, (handles, out) = build_query(name)  # device=None: the card
     if handle.runtime.device.type != "cuda":
@@ -1268,7 +1484,7 @@ def run_query(name: str, all_events: dict):
     torch.cuda.reset_peak_memory_stats()
     ck_mod.reset_launches()
     n = 0
-    for _ in range(WARM_TICKS):
+    for _ in range(warm_ticks):
         gen.feed(handles, n, n + EVENTS_PER_TICK)
         handle.step()
         accumulate(acc, out.take().to_dict())
@@ -1276,11 +1492,14 @@ def run_query(name: str, all_events: dict):
     handle.step_times_ns.clear()
     per_tick = {k: [] for k in ck_mod.LAUNCHES}
     t0 = time.perf_counter()
-    for _ in range(TICKS):
+    acc_s = 0.0  # the oracle's bookkeeping: every output row to the host
+    for _ in range(ticks):
         before = dict(ck_mod.LAUNCHES)
         gen.feed(handles, n, n + EVENTS_PER_TICK)
         handle.step()
+        ta = time.perf_counter()
         accumulate(acc, out.take().to_dict())
+        acc_s += time.perf_counter() - ta
         n += EVENTS_PER_TICK
         for k, count in ck_mod.LAUNCHES.items():
             per_tick[k].append(count - before[k])
@@ -1306,7 +1525,7 @@ def run_query(name: str, all_events: dict):
         fail(f"{name} accumulated output differs from the oracle: "
              f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
     lat = sorted(handle.step_times_ns)
-    host_metrics[name] = {"events_per_s": TICKS * EVENTS_PER_TICK / elapsed,
+    host_metrics[name] = {"events_per_s": ticks * EVENTS_PER_TICK / elapsed,
                           "tick_p50_ms": lat[len(lat) // 2] / 1e6,
                           "tick_p99_ms": lat[min(len(lat) - 1,
                                                  int(len(lat) * 0.99))] / 1e6}
@@ -1316,10 +1535,15 @@ def run_query(name: str, all_events: dict):
                                               "acc_spine"))
                       if sp is not None)
     say(json.dumps({
-        "phase": name, "device": "cuda", "events_per_tick": EVENTS_PER_TICK,
-        "warm_ticks": WARM_TICKS, "ticks": TICKS,
-        "events_measured": TICKS * EVENTS_PER_TICK, "events_total": n,
-        "events_per_s": TICKS * EVENTS_PER_TICK / elapsed,
+        "phase": name, "device": "cuda", "card": CARD[0],
+        "events_per_tick": EVENTS_PER_TICK,
+        "warm_ticks": warm_ticks, "ticks": ticks,
+        "events_measured": ticks * EVENTS_PER_TICK, "events_total": n,
+        "events_per_s": ticks * EVENTS_PER_TICK / elapsed,
+        # the same without the oracle's accumulation of the output rows
+        # on the host, which dominates a query of one row per bid
+        "events_per_s_feed_and_step": ticks * EVENTS_PER_TICK
+        / (elapsed - acc_s),
         "tick_p50_ms": lat[len(lat) // 2] / 1e6,
         "tick_p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] / 1e6,
         "tick_max_ms": lat[-1] / 1e6,
@@ -1329,8 +1553,8 @@ def run_query(name: str, all_events: dict):
         "launches_per_measured_tick": {k: [min(c), max(c)]
                                        for k, c in per_tick.items()},
         "output_rows": len(acc), "oracle_equal": True,
-        "note": "2M measured events: a cut of Nexmark's usual 100M events, "
-                "made for the run's time limit",
+        "note": f"{ticks * EVENTS_PER_TICK} measured events: a cut of "
+                "Nexmark's usual 100M events, made for the run's time limit",
     }))
     return launches, per_tick
 
@@ -1340,16 +1564,17 @@ def run_query(name: str, all_events: dict):
 # ---------------------------------------------------------------------------
 
 
-def port_kernel_ms(dev_kernels: dict) -> dict:
+def port_kernel_ms(dev_kernels: dict, ticks: int) -> dict:
     """Device ms per profiled tick of each of the port's kernels (its
-    template instances summed), from {event name: [ms, launches]}."""
+    template instances summed), from {event name: [ms, launches]} over
+    ``ticks`` ticks."""
     from dbsp_tpu_torch.profile_query import port_kernel
 
     out: dict = {}
     for event, (ms, _) in dev_kernels.items():
         k = port_kernel(event)
         if k is not None:
-            out[k] = out.get(k, 0.0) + ms / C_PROFILE
+            out[k] = out.get(k, 0.0) + ms / ticks
     return out
 
 
@@ -1370,6 +1595,41 @@ def state_bytes(tree) -> int:
     return 0
 
 
+def probe_shape(lookups: list, last_call: tuple, busy_ops: float) -> dict:
+    """The measured ticks' old-weights lookups of a compiled distinct:
+    their ladders' level and argument-slot counts (``lookups``, a
+    (levels, columns) pair each; above ``ARGS_MAX`` slots the probe's
+    argument block goes as a device table), and the device ops of one
+    lookup (the last, ``last_call``: its delta and ladder), the probe
+    kernel and the per-level sum after it, against ``busy_ops``, the
+    device ops of a profiled tick, which makes one lookup."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset import cursor
+
+    if not lookups:
+        fail("the compiled distinct made no old-weights lookup")
+    levels = [k for k, _ in lookups]
+    slots = [ck_mod.probe_ladder_slots(k, c) for k, c in lookups]
+    delta, ladder = last_call
+    Recorder.paused += 1
+    try:
+        ms, ops, by_op = device_ms(
+            lambda: cursor.old_weights_ladder(delta, ladder),
+            what="old_weights_ladder")
+    finally:
+        Recorder.paused -= 1
+    return {"levels": [min(levels), max(levels)], "columns": lookups[0][1],
+            "argument_slots": [min(slots), max(slots)],
+            "args_max": ck_mod.ARGS_MAX,
+            "device_table": max(slots) > ck_mod.ARGS_MAX,
+            "lookups_measured": len(lookups),
+            "lookup_device_ms": ms, "lookup_device_ops": ops,
+            "lookup_device_ms_by_op": by_op,
+            # one lookup a measured tick (checked): all its ops but the
+            # probe's one launch are the per-level sum
+            "sum_loop_ops_share_of_tick": (ops - 1) / busy_ops}
+
+
 def run_compiled(name: str) -> dict:
     """Drive one query on the compiled engine on the card (see the module
     doc, phase 4b); fail on any disagreement. Returns its launches."""
@@ -1383,7 +1643,10 @@ def run_compiled(name: str) -> dict:
     from dbsp_tpu_torch.nexmark import (GeneratorConfig, NexmarkGenerator,
                                         device_gen)
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset import cursor
 
+    c_warm, c_ticks, c_profile = COMPILED_DEPTH.get(
+        name, (C_WARM, C_TICKS, C_PROFILE))
     ept = EVENTS_PER_TICK // 50
     cfg = GeneratorConfig(seed=1)
     handle, (handles, out) = build_query(name)
@@ -1397,7 +1660,7 @@ def run_compiled(name: str) -> dict:
 
     # the level count for this run length, as the reference bench picks it
     ch = compile_circuit(handle, gen_fn=gen_fn,
-                         trace_levels=cnodes.levels_for_run(C_TICKS))
+                         trace_levels=cnodes.levels_for_run(c_ticks))
     out_idx = ch._op_to_index[id(out._op)]
     outs = {}
     syncs = []
@@ -1407,6 +1670,18 @@ def run_compiled(name: str) -> dict:
     per_tick = {k: [] for k in ck_mod.LAUNCHES}
     counting = [False]
     dispatch = ch._dispatch
+    # distinct's old-weights lookups in the measured ticks: (levels,
+    # columns) of each, and only the last call's arguments, so that no
+    # tick's tensors outlive the next
+    lookups: list = []
+    last_lookup: list = [None]
+    old_weights = cursor.old_weights_ladder
+
+    def recorded_old_weights(delta, levels):
+        if counting[0]:
+            lookups.append((len(levels), len(delta.cols)))
+            last_lookup[0] = (delta, levels)
+        return old_weights(delta, levels)
 
     def counted_dispatch(tick, feeds=None):
         # a measured tick's host syncs (the sync debug mode warns at each
@@ -1456,28 +1731,32 @@ def run_compiled(name: str) -> dict:
 
     gc.callbacks.append(gc_phase)
     ch._dispatch = counted_dispatch
+    cursor.old_weights_ladder = recorded_old_weights
     Recorder.query = f"{name}-compiled"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ck_mod.reset_launches()
     t0 = time.perf_counter()
-    ch.run_ticks(0, C_WARM, validate_every=1, project_ratio=4.0)
-    ch.presize((C_WARM + 1 + C_TICKS) / C_WARM, interval=C_VALIDATE)
-    ch.run_ticks(C_WARM, 1, validate_every=1, project_ratio=4.0)
-    ch.block()
-    warm_s = time.perf_counter() - t0
-    warm_replays = ch.overflow_replays
-    ch.reset_timing()
-    m0 = C_WARM + 1
-    counting[0] = True
-    t0 = time.perf_counter()
-    ch.run_ticks(m0, C_TICKS, validate_every=C_VALIDATE, block_each=True,
-                 project_ratio=4.0,
-                 snapshot_every=max(1, C_TICKS // C_VALIDATE // 2))
-    ch.block()
-    elapsed = time.perf_counter() - t0
-    counting[0] = False
-    gc.callbacks.remove(gc_phase)
+    try:
+        ch.run_ticks(0, c_warm, validate_every=1, project_ratio=4.0)
+        ch.presize((c_warm + 1 + c_ticks) / c_warm, interval=C_VALIDATE)
+        ch.run_ticks(c_warm, 1, validate_every=1, project_ratio=4.0)
+        ch.block()
+        warm_s = time.perf_counter() - t0
+        warm_replays = ch.overflow_replays
+        ch.reset_timing()
+        m0 = c_warm + 1
+        counting[0] = True
+        t0 = time.perf_counter()
+        ch.run_ticks(m0, c_ticks, validate_every=C_VALIDATE,
+                     block_each=True, project_ratio=4.0,
+                     snapshot_every=max(1, c_ticks // C_VALIDATE // 2))
+        ch.block()
+        elapsed = time.perf_counter() - t0
+    finally:
+        counting[0] = False
+        cursor.old_weights_ladder = old_weights
+        gc.callbacks.remove(gc_phase)
     lat = sorted(ch.step_times_ns)
     measured_replays = ch.overflow_replays - warm_replays
     launches = dict(ck_mod.LAUNCHES)
@@ -1486,7 +1765,7 @@ def run_compiled(name: str) -> dict:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         tp = time.perf_counter()
-        ch.run_ticks(m0 + C_TICKS, C_PROFILE, validate_every=C_VALIDATE,
+        ch.run_ticks(m0 + c_ticks, c_profile, validate_every=C_VALIDATE,
                      block_each=True, project_ratio=4.0)
         ch.block()
         wall_ms = (time.perf_counter() - tp) * 1e3
@@ -1503,7 +1782,17 @@ def run_compiled(name: str) -> dict:
     for k in COMPILED[name]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the compiled {name} path")
-    n_ticks = m0 + C_TICKS + C_PROFILE
+    if sum(syncs):
+        fail(f"compiled {name}: {sum(syncs)} host syncs in {len(syncs)} "
+             f"measured ticks, at {sync_sites}")
+    probe = None
+    if "lex_probe_ladder" in COMPILED[name]:
+        if set(per_tick["lex_probe_ladder"]) != {1}:
+            fail(f"compiled {name}: {per_tick['lex_probe_ladder']} lex-probe "
+                 "launches per measured tick, not one")
+        probe = probe_shape(lookups, last_lookup[0], busy_ops=sum(
+            v[1] for v in dev_kernels.values()) / c_profile)
+    n_ticks = m0 + c_ticks + c_profile
     if sorted(outs) != list(range(n_ticks)):
         fail(f"compiled {name}: outputs of ticks {sorted(outs)[:5]}...")
     # every tick against the port's host engine on the card, same events
@@ -1530,12 +1819,13 @@ def run_compiled(name: str) -> dict:
     if not want or acc != want:
         fail(f"compiled {name} integrated output differs from the oracle")
     say(json.dumps({
-        "phase": f"{name}-compiled", "device": "cuda",
-        "events_per_tick": EVENTS_PER_TICK, "warm_ticks": C_WARM + 1,
-        "ticks": C_TICKS, "validate_every": C_VALIDATE,
+        "phase": f"{name}-compiled", "device": "cuda", "card": CARD[0],
+        "events_per_tick": EVENTS_PER_TICK, "warm_ticks": c_warm + 1,
+        "ticks": c_ticks, "validate_every": C_VALIDATE,
+        "profiled_ticks": c_profile,
         "trace_levels": ch.trace_levels,
-        "events_measured": C_TICKS * EVENTS_PER_TICK,
-        "events_per_s": C_TICKS * EVENTS_PER_TICK / elapsed,
+        "events_measured": c_ticks * EVENTS_PER_TICK,
+        "events_per_s": c_ticks * EVENTS_PER_TICK / elapsed,
         "tick_p50_ms": lat[len(lat) // 2] / 1e6,
         "tick_p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] / 1e6,
         "tick_max_ms": lat[-1] / 1e6,
@@ -1547,12 +1837,13 @@ def run_compiled(name: str) -> dict:
                              for k, v in ch.host_overhead_ns.items()},
         "maintain": dict(ch.maintain_stats),
         "busy_share": busy_ms / wall_ms,
-        "busy_ms_per_tick": busy_ms / C_PROFILE,
-        "wall_ms_per_tick_profiled": wall_ms / C_PROFILE,
+        "busy_ms_per_tick": busy_ms / c_profile,
+        "wall_ms_per_tick_profiled": wall_ms / c_profile,
         "device_ops_per_tick": sum(v[1] for v in dev_kernels.values())
-        / C_PROFILE,
-        "device_top_ms_per_tick": {k: v[0] / C_PROFILE for k, v in top},
-        "port_kernels_ms_per_tick": port_kernel_ms(dev_kernels),
+        / c_profile,
+        "device_top_ms_per_tick": {k: v[0] / c_profile for k, v in top},
+        "port_kernels_ms_per_tick": port_kernel_ms(dev_kernels, c_profile),
+        "distinct_lookup": probe,
         "dispatch_ms_per_measured_tick": sum(dispatch_ns) / 1e6
         / max(len(dispatch_ns), 1),
         "host_syncs_per_measured_tick": sum(syncs) / max(len(syncs), 1),
@@ -1568,11 +1859,98 @@ def run_compiled(name: str) -> dict:
         "launches_with_profiled": launches_all,
         "output_rows": rows, "host_engine_equal": True,
         "oracle_equal": True, "oracle_rows": len(want),
-        "note": f"{C_TICKS * EVENTS_PER_TICK} measured events: a cut of "
+        "note": f"{c_ticks * EVENTS_PER_TICK} measured events: a cut of "
                 "Nexmark's usual 100M events, made for the run's time "
                 "limit",
     }))
     return launches, per_tick
+
+
+def algebra_circuit(c):
+    """Three int64 inputs through plus, minus, neg and sum_with into
+    stream_distinct and distinct, and a sum read through a negation (its
+    consolidation deferred to the sink on the compiled engine)."""
+    import torch
+
+    from dbsp_tpu_torch.operators import add_input_zset
+
+    i64 = (torch.int64,)
+    s1, h1 = add_input_zset(c, i64, i64)
+    s2, h2 = add_input_zset(c, i64, i64)
+    s3, h3 = add_input_zset(c, i64, i64)
+    b = s1.plus(s2).minus(s3)
+    d = b.sum_with([s3.neg(), s1])
+    o1 = d.stream_distinct().distinct().output()
+    o2 = b.sum_with([s2.neg()]).neg().output()
+    return (h1, h2, h3), (o1, o2)
+
+
+def run_algebra() -> dict:
+    """Phase 4c (module doc): the feeds-mode algebra circuit compiled on
+    the card against the same circuit on the host engine on the card.
+    Returns its launches."""
+    import torch
+
+    from dbsp_tpu_torch.circuit import Runtime
+    from dbsp_tpu_torch.compiled import CompiledOverflow, compile_circuit
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    host, (hin, hout) = Runtime.init_circuit(1, algebra_circuit)
+    comp, (cin, cout) = Runtime.init_circuit(1, algebra_circuit)
+    ch = compile_circuit(comp)
+    if ch.deferred_consolidations != 1:
+        fail(f"algebra: {ch.deferred_consolidations} deferred "
+             "consolidations, want 1 (the sum read through a negation)")
+    rng = np.random.default_rng(13)
+    dev = torch.device("cuda")
+    rows = replays = 0
+    # random rows of an arbitrary size: their calls are not the Nexmark
+    # main paths' the kernel table times
+    Recorder.paused += 1
+    ck_mod.reset_launches()
+    for t in range(ALGEBRA_TICKS):
+        feeds = {}
+        for h, g in zip(hin, cin):
+            k = rng.integers(0, 30_000, ALGEBRA_ROWS)
+            v = rng.integers(0, 4, ALGEBRA_ROWS)
+            w = rng.choice(np.array([-1, 1, 2]), ALGEBRA_ROWS)
+            h.push_batch(Batch.from_columns([k], [v], w, device=dev))
+            feeds[g] = Batch.from_columns([k], [v], w, device=dev)
+        host.step()
+        while True:  # feeds mode: on overflow grow, restore, step again
+            snap = ch.snapshot()
+            ch.step(t, feeds=feeds)
+            try:
+                ch.validate()
+                break
+            except CompiledOverflow as e:
+                replays += 1
+                ch.grow(e)
+                ch.restore(snap)
+        ch.maintain()
+        for h, o in zip(hout, cout):
+            want = h.to_dict()
+            b = ch.output(o)
+            got = b.to_dict() if b is not None else {}
+            if got != want:
+                fail(f"algebra tick {t}: compiled {sorted(got.items())[:5]} "
+                     f"vs host {sorted(want.items())[:5]}")
+            rows += len(want)
+    Recorder.paused -= 1
+    launches = dict(ck_mod.LAUNCHES)
+    for k in ("lex_probe_ladder", "rank_merge"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the algebra circuit")
+    if not rows:
+        fail("algebra: the comparison held no rows")
+    say(json.dumps({"phase": "algebra-compiled", "device": "cuda",
+                    "ticks": ALGEBRA_TICKS, "rows_per_input": ALGEBRA_ROWS,
+                    "overflow_replays": replays, "output_rows": rows,
+                    "host_engine_equal": True, "launches": launches,
+                    "nodes": sorted({type(cn).__name__
+                                     for cn in ch.cnodes})}))
+    return launches, {k: [] for k in launches}
 
 
 def cross_check(name: str) -> int:
@@ -2341,20 +2719,20 @@ def main() -> int:
     say(f"nvidia-smi: {smi_line}")
     dev = torch.device("cuda")
 
+    CARD[0] = smi_line
+
     # 2. build
-    t0 = time.perf_counter()
-    ck_mod.build(verbose=True)
-    for src in ck_mod.SOURCES:
-        ck_mod.load_library(src.rsplit(".", 1)[0])
-    say(f"build: {time.perf_counter() - t0:.3f} s")
+    with phase("build"):
+        ck_mod.build(verbose=True)
+        for src in ck_mod.SOURCES:
+            ck_mod.load_library(src.rsplit(".", 1)[0])
 
     # 3. kernels vs plain versions on the card
     ck = Checker()
-    t0 = time.perf_counter()
-    check_kernels(ck, dev)
+    with phase("kernels"):
+        check_kernels(ck, dev)
     say(f"kernels: {json.dumps(ck.cases)} cases equal to the plain "
-        f"versions, tolerance 0 (exact: integer data) "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"versions, tolerance 0 (exact: integer data)")
 
     # 4. the queries' paths on the card, one after the other, each with
     #    the launch counts set to 0 just before it and read just after
@@ -2363,11 +2741,16 @@ def main() -> int:
     with contextlib.ExitStack() as stack:
         recs = [stack.enter_context(r) for r in recorders()]
         for name in QUERIES:
-            runs[name] = run_query(name, all_events)
+            with phase(f"query {name}"):
+                runs[name] = run_query(name, all_events)
         all_events.clear()
         # 4b. the compiled engine's paths, each with its own counts
         for name in COMPILED:
-            runs[f"{name}-compiled"] = run_compiled(name)
+            with phase(f"compiled {name}"):
+                runs[f"{name}-compiled"] = run_compiled(name)
+        # 4c. the Z-set algebra nodes, compiled, in feeds mode
+        with phase("algebra"):
+            runs["algebra-compiled"] = run_algebra()
     captured = {r.name: r.best for r in recs}
     most_queries = {r.name: r.alt for r in recs}
     calls = {name: (name, args, kw) for name, (_, args, kw, _) in
@@ -2376,22 +2759,27 @@ def main() -> int:
     captured["lex_probe_ladder"] = captured.pop("lex_probe_ladder_both")
 
     # 5. cross-check CPU vs card
-    for name in QUERIES:
-        rows = cross_check(name)
-        say(f"cross-check {name}: {CROSS_TICKS} ticks of {CROSS_EVENTS} "
-            f"events, {rows} output rows equal on the CPU and on the card")
+    with phase("cross"):
+        for name in QUERIES:
+            rows = cross_check(name)
+            say(f"cross-check {name}: {CROSS_TICKS} ticks of {CROSS_EVENTS} "
+                f"events, {rows} output rows equal on the CPU and on the "
+                "card")
 
     # 6. kernel table at the shapes the queries gave each kernel
-    table, variants = kernel_table(captured, most_queries, runs, ck)
+    with phase("timing"):
+        table, variants = kernel_table(captured, most_queries, runs, ck)
     if opts.parent:
         # 7. the other trees' kernels against this tree's, in turns
-        say(json.dumps({"turns": time_in_turns({**calls, **variants},
-                                                opts.parent)}))
+        with phase("turns"):
+            say(json.dumps({"turns": time_in_turns({**calls, **variants},
+                                                    opts.parent)}))
     # 8. whether a CUDA graph captures the cooperative launches of the
     #    aggregate kernel and the ladder consumer (a join and a gather)
-    say(json.dumps({"graph_capture": {
-        name: graph_capture(name, *captured[name][1:3])
-        for name in ("agg_ladder", "join_ladder", "gather_ladder")}}))
+    with phase("graph"):
+        say(json.dumps({"graph_capture": {
+            name: graph_capture(name, *captured[name][1:3])
+            for name in ("agg_ladder", "join_ladder", "gather_ladder")}}))
     say(json.dumps({"profiler_retries": profiler_retries}))
     say(json.dumps({"kernels": table}))
     say(smi_line)

@@ -1,18 +1,19 @@
 """Circuit construction: streams, nodes, edges and the per-circuit cache.
 Counterpart of ``dbsp_tpu/circuit/builder.py`` for a root circuit without
-nested clocks or feedback (what q4 needs). The graph lives on the host;
+nested clocks or feedback. The graph lives on the host;
 the values on its streams are batches of device tensors, and each operator
 launches its own device work."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from dbsp_tpu_torch.circuit.operator import (
-    BinaryOperator, Operator, SinkOperator, SourceOperator, UnaryOperator)
+    BinaryOperator, NaryOperator, Operator, SinkOperator, SourceOperator,
+    UnaryOperator)
 
 
 class CircuitError(RuntimeError):
@@ -51,7 +52,7 @@ class Node:
 
     index: int
     operator: Operator
-    kind: str  # "source" | "unary" | "binary" | "sink"
+    kind: str  # "source" | "unary" | "binary" | "nary" | "sink"
     inputs: List[int] = dataclasses.field(default_factory=list)
     schema: Optional[Tuple] = None
 
@@ -92,6 +93,13 @@ class Circuit:
         self._check_stream(b)
         return Stream(self, self._add_node(
             op, "binary", [a.node_index, b.node_index]).index)
+
+    def add_nary_operator(self, op: NaryOperator, streams: Sequence[Stream]
+                          ) -> Stream:
+        for s in streams:
+            self._check_stream(s)
+        return Stream(self, self._add_node(
+            op, "nary", [s.node_index for s in streams]).index)
 
     def add_sink(self, op: SinkOperator, s: Stream) -> None:
         self._check_stream(s)

@@ -36,3 +36,8 @@ class UnaryOperator(Operator):
 class BinaryOperator(Operator):
     def eval(self, a: Any, b: Any) -> Any:
         raise NotImplementedError
+
+
+class NaryOperator(Operator):
+    def eval(self, *values: Any) -> Any:
+        raise NotImplementedError

@@ -324,10 +324,10 @@ class CInput(CNode):
 
 
 class CPure(CNode):
-    """Map / filter: the host operator's eval is already a pure Batch ->
-    Batch function. With ``defer_consolidate`` (the handle's placement
-    pass) a map skips its trailing consolidation: every consumer
-    canonicalizes anyway."""
+    """Map / filter / flat_map / stream distinct: the host operator's eval
+    is already a pure Batch -> Batch function. With ``defer_consolidate`` (the handle's
+    placement pass) a map or flat_map skips its trailing consolidation:
+    every consumer canonicalizes anyway."""
 
     defer_consolidate = False
 
@@ -335,6 +335,41 @@ class CPure(CNode):
         if self.defer_consolidate:
             return None, self.op.eval_raw(inputs[0])
         return None, self.op.eval(inputs[0])
+
+
+class CPlus(CNode):
+    """Z-set addition of two consolidated batches: one rank merge at the
+    summed capacity (no shrink, which would read the live count)."""
+
+    def eval(self, ctx, state, inputs):
+        a, b = inputs
+        return None, a.merge_with(b)
+
+
+class CMinus(CNode):
+    def eval(self, ctx, state, inputs):
+        return None, inputs[0].merge_with(inputs[1].neg())
+
+
+class CNeg(CNode):
+    """Negation keeps the row order: it passes its consumers' need for
+    consolidated rows on to its producer."""
+
+    def eval(self, ctx, state, inputs):
+        return None, inputs[0].neg()
+
+
+class CSumN(CNode):
+    """N-ary sum: one concatenation and one consolidation, which the
+    placement pass defers when no consumer needs consolidated rows."""
+
+    defer_consolidate = False
+
+    def eval(self, ctx, state, inputs):
+        cat = concat_batches(list(inputs))
+        if self.defer_consolidate:
+            return None, cat
+        return None, cat.consolidate()
 
 
 class COutput(CNode):
@@ -424,18 +459,34 @@ class CJoin(CNode):
         return None, out
 
 
-class CAggregate(CNode):
-    """General incremental aggregate (Max): gather the touched groups from
-    the input trace view, reduce, diff against the node's own output
-    trace, all in one ``cuda_kernels.agg_ladder`` call.
+class CDistinct(CNode):
+    """Incremental distinct over its trace's CView, stateless given the
+    view: one launch of the two-sided ladder probe finds every delta row's
+    weight across the pre-tick levels (a slotted level 0 fans out into its
+    slots), then the output delta is elementwise."""
 
-    Insert-combinable aggregates take a fast path: a group whose delta
-    only inserts combines the delta's own reduction with the previous
-    output (new max = max(old max, delta max)), so no history comes back
-    from the input trace. That is sound only while every net weight in the
-    trace is non-negative, so the state carries an ``ever_negative`` flag:
-    once any retraction has entered the stream, touched groups re-gather
-    (the slow path). The flag is a device bool and gates the gather at run
+    def eval(self, ctx, state, inputs):
+        from dbsp_tpu_torch.operators.distinct import _distinct_delta
+        from dbsp_tpu_torch.zset import cursor
+
+        view: CView = inputs[0]
+        old_w = cursor.old_weights_ladder(view.delta, view.pre)
+        return None, _distinct_delta(view.delta, old_w)
+
+
+class CAggregate(CNode):
+    """General incremental aggregate (Count, Sum, Min, Max, Average):
+    gather the touched groups from the input trace view, reduce, diff
+    against the node's own output trace, all in one
+    ``cuda_kernels.agg_ladder`` call.
+
+    Insert-combinable aggregates (Min, Max) take a fast path: a group
+    whose delta only inserts combines the delta's own reduction with the
+    previous output (new max = max(old max, delta max)), so no history
+    comes back from the input trace. That is sound only while every net
+    weight in the trace is non-negative, so the state carries an
+    ``ever_negative`` flag: once any retraction has entered the stream,
+    touched groups re-gather (the slow path). The flag is a device bool and gates the gather at run
     time; it never needs a host read."""
 
     MONOTONE_CAPS = frozenset({"out_trace", "gather"})

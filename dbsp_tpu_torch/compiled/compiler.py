@@ -81,7 +81,10 @@ class _Ctx:
 def _cnode_for(node, trace_levels: int) -> CNode:
     from dbsp_tpu_torch.operators.aggregate import AggregateOp
     from dbsp_tpu_torch.operators.aggregate_linear import LinearAggregateOp
-    from dbsp_tpu_torch.operators.filter_map import FilterOp, MapOp
+    from dbsp_tpu_torch.operators.basic import Minus, Neg, Plus, SumN
+    from dbsp_tpu_torch.operators.distinct import DistinctOp, StreamDistinct
+    from dbsp_tpu_torch.operators.filter_map import (FilterOp, FlatMapOp,
+                                                     MapOp)
     from dbsp_tpu_torch.operators.io_handles import OutputOperator, ZSetInput
     from dbsp_tpu_torch.operators.join import JoinOp
     from dbsp_tpu_torch.operators.trace_op import TraceOp
@@ -89,7 +92,7 @@ def _cnode_for(node, trace_levels: int) -> CNode:
     op = node.operator
     if isinstance(op, ZSetInput):
         return cnodes.CInput(node, op)
-    if isinstance(op, (MapOp, FilterOp)):
+    if isinstance(op, (MapOp, FilterOp, FlatMapOp, StreamDistinct)):
         return cnodes.CPure(node, op)
     if isinstance(op, TraceOp):
         return cnodes.CTrace(node, op, levels=trace_levels)
@@ -99,6 +102,16 @@ def _cnode_for(node, trace_levels: int) -> CNode:
         return cnodes.CAggregate(node, op)
     if isinstance(op, LinearAggregateOp):
         return cnodes.CLinearAggregate(node, op)
+    if isinstance(op, DistinctOp):
+        return cnodes.CDistinct(node, op)
+    if isinstance(op, Plus):
+        return cnodes.CPlus(node, op)
+    if isinstance(op, Minus):
+        return cnodes.CMinus(node, op)
+    if isinstance(op, Neg):
+        return cnodes.CNeg(node, op)
+    if isinstance(op, SumN):
+        return cnodes.CSumN(node, op)
     if isinstance(op, OutputOperator):
         return cnodes.COutput(node, op)
     raise NotImplementedError(
@@ -195,14 +208,20 @@ class CompiledHandle:
     def _place_consolidations(self) -> int:
         """Defer consolidations toward the sinks. A consolidation only
         canonicalizes: it never changes a batch's Z-set value. When every
-        consumer of a join or a map re-canonicalizes anyway (a map, which
-        consolidates after transforming, or an output sink, which
+        consumer of a node re-canonicalizes anyway (a general map or
+        flat_map, which consolidate after transforming; an n-ary sum,
+        which concatenates and consolidates; an output sink, which
         canonicalizes when read), the node's own trailing consolidation is
-        dead work and is dropped (``defer_consolidate``). A filter keeps
-        its input's order, so it passes its consumers' need on. Traces and
-        aggregates need consolidated inputs and fence the deferral.
-        Returns the number of deferred consolidations."""
-        from dbsp_tpu_torch.operators.filter_map import FilterOp, MapOp
+        dead work and is dropped (``defer_consolidate``): a join's, an
+        n-ary sum's, or a map's or flat_map's that does not preserve
+        order. Order-preserving pass-throughs (filter, neg) pass their
+        consumers' need on. Everything stateful (traces, aggregates,
+        distinct, the plus / minus merges) and an order-preserving map,
+        whose sort-free consolidation scans one sorted run, need
+        consolidated inputs and fence the deferral. Returns the number of
+        deferred consolidations."""
+        from dbsp_tpu_torch.operators.filter_map import (FilterOp, FlatMapOp,
+                                                         MapOp)
 
         consumers: Dict[int, List[CNode]] = {}
         for cn in self.cnodes:
@@ -211,14 +230,26 @@ class CompiledHandle:
 
         def input_need(cn: CNode) -> bool:
             """Does ``cn`` need consolidated INPUT batches? (Consumers are
-            resolved before producers, so a filter reads its own
-            ``_out_need``.)"""
+            resolved before producers, so a pass-through node reads its
+            own ``_out_need``.)"""
             if isinstance(cn, cnodes.COutput):
                 return False  # reads canonicalize at the sink
+            if isinstance(cn, cnodes.CSumN):
+                # it consolidates itself unless deferred, and it is
+                # deferred only when its own consumers need no
+                # consolidated rows
+                return False
             if isinstance(cn, cnodes.CPure):
-                if isinstance(cn.op, FilterOp):
+                op = cn.op
+                if isinstance(op, FilterOp):
                     return getattr(cn, "_out_need", True)
-                return not isinstance(cn.op, MapOp)
+                if isinstance(op, MapOp):
+                    return op.preserves_order
+                if isinstance(op, FlatMapOp):
+                    return False
+                return True  # stream distinct
+            if isinstance(cn, cnodes.CNeg):
+                return getattr(cn, "_out_need", True)
             return True
 
         deferred = 0
@@ -227,9 +258,11 @@ class CompiledHandle:
             cn._out_need = (not cons) or any(input_need(c) for c in cons)
             if cn._out_need:
                 continue
-            if isinstance(cn, cnodes.CJoin) or (
-                    isinstance(cn, cnodes.CPure)
-                    and isinstance(cn.op, MapOp)):
+            can_defer = isinstance(cn, (cnodes.CJoin, cnodes.CSumN)) or (
+                isinstance(cn, cnodes.CPure)
+                and isinstance(cn.op, (MapOp, FlatMapOp))
+                and not getattr(cn.op, "preserves_order", False))
+            if can_defer:
                 cn.defer_consolidate = True
                 deferred += 1
         return deferred

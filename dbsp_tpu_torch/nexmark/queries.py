@@ -1,7 +1,8 @@
-"""Nexmark queries as circuit builders — q3, q4, q8 and q15 of
-``dbsp_tpu/nexmark/queries.py``. A builder takes the three relation
-streams (persons, auctions, bids) and returns the query's output stream.
-Integer division is floor division on int64, as ``jnp``'s ``//`` is."""
+"""Nexmark queries as circuit builders — q0-q4, q8, q12-q15, q17 and
+q20-q22 of ``dbsp_tpu/nexmark/queries.py``. A builder takes the three
+relation streams (persons, auctions, bids) and returns the query's output
+stream. Integer division is floor division on int64, as ``jnp``'s ``//``
+is."""
 
 from __future__ import annotations
 
@@ -9,13 +10,38 @@ import torch
 
 from dbsp_tpu_torch.circuit.builder import Stream
 from dbsp_tpu_torch.nexmark import model as M
-from dbsp_tpu_torch.operators.aggregate import Max
+from dbsp_tpu_torch.operators.aggregate import Max, Min
 # Count/Average take the linear path (delta segment sums, no input trace)
 from dbsp_tpu_torch.operators.aggregate_linear import LinearAverage as Average
 from dbsp_tpu_torch.operators.aggregate_linear import LinearCount as Count
 
 I64 = torch.int64
 I32 = torch.int32
+
+
+def q0(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Passthrough: the engine's own overhead."""
+    return bids.map_rows(lambda k, v: (k, v), M.BID_KEY, M.BID_VALS,
+                         name="q0", preserves_order=True)
+
+
+def q1(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Currency conversion, dollars to euros: price * 908 // 1000 (integer
+    milli-euros keep the Z-set exact)."""
+    def conv(k, v):
+        bidder, price, channel, ts = v
+        return k, (bidder, price * 908 // 1000, channel, ts)
+
+    return bids.map_rows(conv, M.BID_KEY, M.BID_VALS, name="q1",
+                         preserves_order=True)
+
+
+def q2(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Bids on a sampled set of auctions (auction % 123 == 0), projected to
+    (auction, price)."""
+    filt = bids.filter_rows(lambda k, v: k[0] % 123 == 0, name="q2-filter")
+    return filt.map_rows(lambda k, v: (k, (v[M.B_PRICE],)),
+                         M.BID_KEY, (I64,), name="q2-project")
 
 # State codes standing in for the reference's 'OR','ID','CA' literals
 # (states are dictionary-encoded by the generator).
@@ -54,7 +80,7 @@ def q8(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
     p_keyed = persons.index_by(
         lambda k, v: (k[0], (v[M.P_DATE] // Q8_WINDOW_MS) * Q8_WINDOW_MS),
         (I64, I64), val_fn=lambda k, v: (v[M.P_NAME],), val_dtypes=(I32,),
-        name="q8-persons")
+        name="q8-persons", preserves_first_key=True)
     a_keyed = auctions.index_by(
         lambda k, v: (v[M.A_SELLER],
                       (v[M.A_DATE] // Q8_WINDOW_MS) * Q8_WINDOW_MS),
@@ -62,7 +88,7 @@ def q8(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
         name="q8-auctions")
     joined = p_keyed.join_index(
         a_keyed, lambda k, pv, av: (k, (pv[0],)), (I64, I64), (I32,),
-        name="q8-join")
+        name="q8-join", preserves_first_key=True)
     return joined.distinct()
 
 
@@ -73,19 +99,22 @@ def q4(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
     by_auction = auctions.index_by(
         lambda k, v: (k[0],), M.AUCTION_KEY,
         val_fn=lambda k, v: (v[M.A_CATEGORY], v[M.A_DATE], v[M.A_EXPIRES]),
-        val_dtypes=(I64, I64, I64), name="q4-auctions")
+        val_dtypes=(I64, I64, I64), name="q4-auctions",
+        preserves_first_key=True)
     joined = bids.join_index(
         by_auction,
         lambda k, bv, av: (
             (k[0], av[0]),
             (bv[M.B_PRICE], bv[M.B_DATE], av[1], av[2])),
-        [I64, I64], [I64, I64, I64, I64], name="q4-join")
+        [I64, I64], [I64, I64, I64, I64], name="q4-join",
+        preserves_first_key=True)
     in_window = joined.filter_rows(
         lambda k, v: (v[1] >= v[2]) & (v[1] <= v[3]), name="q4-window")
     # max price per (auction, category)
     per_auction = in_window.map_rows(
         lambda k, v: (k, (v[0],)), (I64, I64), (I64,),
-        name="q4-price").aggregate(Max(0), name="q4-max")
+        name="q4-price", preserves_first_key=True).aggregate(
+            Max(0), name="q4-max")
     # average of those maxima per category
     by_category = per_auction.index_by(
         lambda k, v: (k[1],), (I64,), val_fn=lambda k, v: (v[0],),
@@ -106,3 +135,136 @@ def q15(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
                            val_fn=lambda k, v: (k[1],), val_dtypes=(I64,),
                            name="q15-by-day")
     return by_day.aggregate(Count(), name="q15-count")
+
+
+Q12_WINDOW_TICKS = 10
+
+
+def q12(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Bid count per bidder per PROCESSING-time window. Processing time on
+    a deterministic engine is the tick index: each step is one unit and a
+    window spans 10 ticks. The tick counter is a stream_fold (no wall
+    clock, so runs reproduce)."""
+    from dbsp_tpu_torch.operators.basic import Apply2
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    tick = bids.stream_fold(0, lambda acc, b: acc + 1)
+
+    def attach(batch: Batch, t: int) -> Batch:
+        win = (t - 1) // Q12_WINDOW_TICKS
+        bidder = batch.vals[M.B_BIDDER]
+        wcol = torch.full((batch.cap,), win, dtype=I64, device=batch.device)
+        return Batch((bidder, wcol), (), batch.weights).consolidate()
+
+    keyed = bids.circuit.add_binary_operator(
+        Apply2(attach, "q12-procwin"), bids, tick)
+    keyed.schema = ((I64, I64), ())
+    return keyed.aggregate(Count(), name="q12-count")
+
+
+def q13(persons: Stream, auctions: Stream, bids: Stream,
+        side: Stream = None) -> Stream:
+    """Bounded side-input join: bids enriched from a static keyed table,
+    by default channel -> 1000 + channel."""
+    from dbsp_tpu_torch.operators.basic import Generator
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    c = bids.circuit
+    if side is None:
+        table = Batch.from_tuples([((ch, 1000 + ch), 1) for ch in range(16)],
+                                  (I64,), (I64,), device=c.device)
+        side = c.add_source(Generator(
+            [table], default=Batch.empty((I64,), (I64,), device=c.device)))
+        side.schema = ((I64,), (I64,))
+    by_channel = bids.index_by(
+        lambda k, v: (v[M.B_CHANNEL].to(I64),), (I64,),
+        val_fn=lambda k, v: (k[0], v[M.B_BIDDER], v[M.B_PRICE], v[M.B_DATE]),
+        val_dtypes=(I64, I64, I64, I64), name="q13-by-channel")
+    return by_channel.join_index(
+        side, lambda k, bv, sv: ((bv[0],), (bv[1], bv[2], bv[3], sv[0])),
+        (I64,), (I64, I64, I64, I64), name="q13-join")
+
+
+def q14(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Calculation + filter: euro price > 1M, with the bid's time of day
+    bucketed. Output key (auction), vals (bidder, eur, timetype, ts);
+    timetype 0 = day [8, 18), 1 = night [0, 6) | [20, 24), 2 = other."""
+    def conv(k, v):
+        eur = v[M.B_PRICE] * 908 // 1000
+        hour = (v[M.B_DATE] // 3_600_000) % 24
+        night = ((hour < 6) | (hour >= 20)).to(I64)
+        day = ((hour >= 8) & (hour < 18)).to(I64)
+        timetype = torch.where(day == 1, 0, torch.where(night == 1, 1, 2))
+        return k, (v[M.B_BIDDER], eur, timetype, v[M.B_DATE])
+
+    mapped = bids.map_rows(conv, M.BID_KEY, (I64, I64, I64, I64),
+                           name="q14-calc")
+    return mapped.filter_rows(lambda k, v: v[1] > 1_000_000,
+                              name="q14-filter")
+
+
+def q17(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Auction bid statistics per day: (auction, day) -> (count, min, max,
+    avg price)."""
+    keyed = bids.map_rows(
+        lambda k, v: ((k[0], v[M.B_DATE] // DAY_MS), (v[M.B_PRICE],)),
+        (I64, I64), (I64,), name="q17-key", preserves_first_key=True)
+    cnt = keyed.aggregate(Count(), name="q17-count")
+    mn = keyed.aggregate(Min(0), name="q17-min")
+    mx = keyed.aggregate(Max(0), name="q17-max")
+    avg = keyed.aggregate(Average(0), name="q17-avg")
+    j1 = cnt.join_index(mn, lambda k, a, b: (k, (a[0], b[0])),
+                        (I64, I64), (I64, I64), name="q17-j1",
+                        preserves_first_key=True)
+    j2 = j1.join_index(mx, lambda k, a, b: (k, (a[0], a[1], b[0])),
+                       (I64, I64), (I64, I64, I64), name="q17-j2",
+                       preserves_first_key=True)
+    return j2.join_index(avg, lambda k, a, b: (k, (a[0], a[1], a[2], b[0])),
+                         (I64, I64), (I64, I64, I64, I64), name="q17-j3",
+                         preserves_first_key=True)
+
+
+def q20(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Bids expanded with their auction's info, category 10 only:
+    (auction) -> (bidder, price, item, seller)."""
+    cat = auctions.filter_rows(lambda k, v: v[M.A_CATEGORY] == Q3_CATEGORY,
+                               name="q20-cat")
+    by_id = cat.index_by(
+        lambda k, v: (k[0],), M.AUCTION_KEY,
+        val_fn=lambda k, v: (v[M.A_ITEM].to(I64), v[M.A_SELLER]),
+        val_dtypes=(I64, I64), name="q20-auctions", preserves_first_key=True)
+    return bids.join_index(
+        by_id, lambda k, bv, av: (k, (bv[M.B_BIDDER], bv[M.B_PRICE],
+                                      av[0], av[1])),
+        (I64,), (I64, I64, I64, I64), name="q20-join",
+        preserves_first_key=True)
+
+
+def q21(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Channel id classification: channels 0-3 map to fixed ids (the
+    apple / google / facebook / baidu CASE), others take the channel_id of
+    their URL. Channels are dictionary codes; ``nexmark/strings.py`` holds
+    the strings, built so this arithmetic EQUALS the CASE and the regex
+    over the decoded strings."""
+    def classify(k, v):
+        ch = v[M.B_CHANNEL].to(I64)
+        chan_id = torch.where(ch < 4, ch, 100 + ch)
+        return k, (v[M.B_BIDDER], v[M.B_PRICE], ch, chan_id)
+
+    return bids.map_rows(classify, M.BID_KEY, (I64, I64, I64, I64),
+                         name="q21")
+
+
+def q22(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """URL split: dir1 / dir2 / dir3 of the bid URL. URLs are dictionary
+    codes; ``nexmark/strings.py`` holds the strings, built so this mod /
+    div arithmetic EQUALS split_part over the decoded URL."""
+    def split(k, v):
+        url = v[M.B_CHANNEL].to(I64)  # the channel doubles as the URL code
+        dir1 = url % 7
+        dir2 = (url // 7) % 11
+        dir3 = (url // 77) % 13
+        return k, (v[M.B_BIDDER], v[M.B_PRICE], dir1, dir2, dir3)
+
+    return bids.map_rows(split, M.BID_KEY, (I64, I64, I64, I64, I64),
+                         name="q22")

@@ -62,6 +62,54 @@ class Aggregator:
 
 
 @dataclasses.dataclass(frozen=True)
+class Count(Aggregator):
+    out_dtypes = (torch.int64,)
+    name = "count"
+
+    def reduce_spec(self):
+        return (("count", 0),)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sum(Aggregator):
+    col: int = 0
+    out_dtypes = (torch.int64,)
+    name = "sum"
+
+    def reduce_spec(self):
+        return (("sum", self.col),)
+
+
+@dataclasses.dataclass(frozen=True)
+class Min(Aggregator):
+    col: int = 0
+    out_dtypes = (torch.int64,)
+    name = "min"
+    insert_combinable = True
+
+    def reduce_spec(self):
+        return (("min", self.col),)
+
+    def combine(self, a_vals, a_present, b_vals, b_present):
+        a, b = a_vals[0], b_vals[0].to(a_vals[0].dtype)
+        return (torch.where(a_present & b_present, torch.minimum(a, b),
+                            torch.where(a_present, a, b)),)
+
+
+@dataclasses.dataclass(frozen=True)
+class Average(Aggregator):
+    """Integer average sum // count, truncating toward zero (SQL
+    semantics, not Python's floor): -7 / 2 == -3."""
+
+    col: int = 0
+    out_dtypes = (torch.int64,)
+    name = "avg"
+
+    def reduce_spec(self):
+        return (("avg", self.col),)
+
+
+@dataclasses.dataclass(frozen=True)
 class Max(Aggregator):
     col: int = 0
     out_dtypes = (torch.int64,)

@@ -74,10 +74,14 @@ class JoinOp(BinaryOperator):
 
 @stream_method
 def join_index(self: Stream, other: Stream, fn: JoinFn, out_key_dtypes,
-               out_val_dtypes, name: str = "join") -> Stream:
+               out_val_dtypes, name: str = "join",
+               preserves_first_key: bool = False) -> Stream:
     """Incremental equi-join on the streams' key columns;
     ``fn(key_cols, left_val_cols, right_val_cols)`` maps each matching
-    pair to output key and value columns."""
+    pair to output key and value columns. ``preserves_first_key`` asserts
+    that ``fn`` emits the join key's first column first: the reference
+    keeps the output's worker placement by it; with one worker it changes
+    nothing."""
     ls = require_schema(self, "join (left input)")
     rs = require_schema(other, "join (right input)")
     if ls[0] != rs[0]:

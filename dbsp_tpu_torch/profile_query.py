@@ -1,6 +1,9 @@
 """Where a Nexmark query's tick time goes on the card.
 
-    python3 -m dbsp_tpu_torch.profile_query [q3|q4|q8|q15 ...]
+    python3 -m dbsp_tpu_torch.profile_query [QUERY ...]
+
+QUERY is any builder of ``nexmark/queries.py`` (q0-q4, q8, q12-q15, q17,
+q20-q22).
 
 Runs each named query (default q4) on the host runtime on the card at
 chip_smoke.py's size (100,000 events per tick, 24 ticks, seed 1), then

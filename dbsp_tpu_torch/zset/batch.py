@@ -147,6 +147,34 @@ class Batch:
         b = Batch(keys, vals, w, runs=(cap,) if consolidated else None)
         return b if consolidated else b.consolidate()
 
+    @staticmethod
+    def from_tuples(rows: Sequence[Tuple[Row, int]], key_dtypes: Sequence,
+                    val_dtypes: Sequence = (), cap: Optional[int] = None, *,
+                    device) -> "Batch":
+        """Host-side constructor from ``((key..., val...), weight)`` pairs,
+        consolidated on ``device``. A live value equal to its integer
+        column's sentinel (the dtype's max) is refused: it would be taken
+        for a dead row."""
+        nk, nv = len(key_dtypes), len(val_dtypes)
+        n = len(rows)
+        cap = cap or bucket_cap(max(n, 1))
+        for row, _ in rows:
+            if len(row) != nk + nv:
+                raise ValueError(f"row arity {len(row)} != {nk}+{nv}")
+        cols = [torch.tensor([row[j] for row, _ in rows], dtype=d)
+                for j, d in enumerate((*key_dtypes, *val_dtypes))]
+        for col in cols:
+            if n and not col.dtype.is_floating_point and \
+                    col.dtype != torch.bool and \
+                    bool((col == torch.iinfo(col.dtype).max).any()):
+                raise ValueError(
+                    f"value {torch.iinfo(col.dtype).max} ({col.dtype}) is "
+                    "reserved as the dead-row sentinel; remap the input "
+                    "domain (e.g. use a wider dtype)")
+        ws = torch.tensor([w for _, w in rows], dtype=WEIGHT_DTYPE)
+        return Batch.from_columns(cols[:nk], cols[nk:], ws, device=device,
+                                  cap=cap)
+
     # -- canonicalization ---------------------------------------------------
     def consolidate(self) -> "Batch":
         """Canonicalize by sorted-run regime: one known run is free, a few

@@ -338,6 +338,13 @@ def _carve(buf: torch.Tensor, c: _Carve) -> list:
 # ---------------------------------------------------------------------------
 
 
+def probe_ladder_slots(K: int, ncols: int) -> int:
+    """Argument slots of one probe launch over ``K`` levels of ``ncols``
+    columns: the level columns, the query columns, the level caps and the
+    columns' kinds (csrc/probe_ladder.cu's layout)."""
+    return K * (ncols + 1) + 3 * ncols
+
+
 def _probe_ladder(tables: Sequence[Cols], query_cols: Cols):
     """One launch of csrc/probe_ladder.cu: the [K, m] int32 ``(lo, hi)``
     of side left and side right."""
@@ -353,7 +360,7 @@ def _probe_ladder(tables: Sequence[Cols], query_cols: Cols):
     q = ncols * K
     caps = q + ncols
     kinds = caps + K
-    args = _ArgBlock(dev, kinds + 2 * ncols, what)
+    args = _ArgBlock(dev, probe_ladder_slots(K, ncols), what)
     for k, t in enumerate(tables):
         if len(t) != ncols:
             raise ValueError(f"{what}: level {k} has {len(t)} columns, the "

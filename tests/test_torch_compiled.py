@@ -1,9 +1,11 @@
 """The port's compiled engine (dbsp_tpu_torch/compiled/) against the
-reference's HOST engine on the same events, tick for tick: Nexmark q4 and
-q3 fed by the port's device-side generator, with initial capacities small
+reference's HOST engine on the same events, tick for tick: Nexmark q4,
+q3, q8 and q17 fed by the port's device-side generator, with initial capacities small
 enough that grow + restore + replay happen; a retraction circuit fed
 through ``step(feeds=...)`` that engages the aggregate's slow path; a warm
-start from host-engine state; and a deep ladder whose drains cascade.
+start from host-engine state; a deep ladder whose drains cascade; the
+Z-set algebra nodes in feeds mode; and the consolidation placement pass
+against the reference's.
 The pattern is tests/test_compiled.py's. Everything runs on the CPU, on
 the kernels' plain versions."""
 
@@ -24,6 +26,7 @@ from dbsp_tpu_torch.nexmark import NexmarkGenerator as TNexmarkGenerator
 from dbsp_tpu_torch.nexmark import build_inputs as tbuild_inputs
 from dbsp_tpu_torch.nexmark import device_gen as tdevice_gen
 from dbsp_tpu_torch.nexmark import queries as tqueries
+from test_torch_operators import _arange2, _twice
 
 CFG = GeneratorConfig(seed=1)
 TCFG = TGeneratorConfig(seed=1)
@@ -259,12 +262,204 @@ def test_compiled_retractions_take_the_slow_path():
     assert "gather" in mx.MONOTONE_CAPS, "the slow path never gathered"
 
 
+def test_compiled_q8_matches_reference_host(monkeypatch):
+    """q8 = index + join with a value-less side + distinct (the compiled
+    distinct: one two-sided ladder probe over the pre-tick levels, a
+    slotted level 0 fanned out into its slots), across grow + restore +
+    replay."""
+    monkeypatch.setattr(cnodes, "LEVEL0_CAP", 8)
+    monkeypatch.setattr(cnodes.CTrace, "DEFAULT_CAP", 8)
+    ticks = 4
+    comp, ch = _compiled_run("q8", ticks)
+    host = _host_run("q8", ticks)
+    assert comp == host
+    assert sum(len(t) for t in host) > 10
+    assert ch.overflow_replays > 0, "no grow + restore + replay happened"
+    assert any(isinstance(cn, cnodes.CDistinct) for cn in ch.cnodes)
+    ch.validate()
+
+
+def test_compiled_q8_validate_every_two_matches(monkeypatch):
+    """q8 with the overflow caught an interval late: the replay re-runs
+    the whole interval, the distinct's trace included."""
+    monkeypatch.setattr(cnodes, "LEVEL0_CAP", 8)
+    monkeypatch.setattr(cnodes.CTrace, "DEFAULT_CAP", 8)
+    ticks = 4
+    comp, ch = _compiled_run("q8", ticks, validate_every=2)
+    host = _host_run("q8", ticks)
+    assert comp[1] == host[1] and comp[3] == host[3]
+    assert ch.overflow_replays > 0
+
+
+def test_compiled_q17_matches_reference_host(small_caps):
+    """q17 = map + the general Min and Max (agg_ladder, fast path) + the
+    linear Count and Average + three joins over aggregate outputs, which
+    retract and insert, across grow + restore + replay."""
+    ticks = 4
+    comp, ch = _compiled_run("q17", ticks)
+    host = _host_run("q17", ticks)
+    assert comp == host
+    assert sum(len(t) for t in host) > 50
+    assert ch.overflow_replays > 0, "no grow + restore + replay happened"
+    aggs = [cn for cn in ch.cnodes if isinstance(cn, cnodes.CAggregate)]
+    assert sorted(cn.op.agg.name for cn in aggs) == ["max", "min"]
+    assert not any(bool(ch.states[str(cn.node.index)][1]) for cn in aggs), \
+        "q17 only inserts: the fast path's gate must stay off"
+    assert ch.deferred_consolidations == 1  # the last join's, to the sink
+
+
+def _algebra_circuit(add_input, i64):
+    """plus, minus, neg and sum_with feeding stream_distinct and distinct,
+    and a deferred sum read through a negation."""
+    def build(c):
+        s1, h1 = add_input(c, (i64,), ())
+        s2, h2 = add_input(c, (i64,), ())
+        s3, h3 = add_input(c, (i64,), ())
+        b = s1.plus(s2).minus(s3)
+        d = b.sum_with([s3.neg(), s1])
+        o1 = d.stream_distinct().distinct().output()
+        o2 = b.sum_with([s2.neg()]).neg().output()
+        return (h1, h2, h3), (o1, o2)
+    return build
+
+
+def _algebra_rows(t):
+    return ([((i,), 1) for i in range(t, t + 4)],
+            [((i,), (-1) ** i) for i in range(0, 3 * t + 1, 3)],
+            [((i,), 1 + (i % 2)) for i in range(2 * t, 2 * t + 3)])
+
+
+def test_compiled_feeds_mode_algebra_matches_reference_host():
+    """Feeds mode (no gen_fn) over plus, minus, neg, sum_with,
+    stream_distinct and distinct: every tick equals the reference's host
+    engine on the same pushed rows, and the placement pass defers what
+    the reference's defers."""
+    from dbsp_tpu.compiled import compile_circuit as rcompile_circuit
+    from dbsp_tpu.operators import add_input_zset
+    from dbsp_tpu.zset.batch import Batch
+    from dbsp_tpu_torch.operators import add_input_zset as tadd_input_zset
+    from dbsp_tpu_torch.zset.batch import Batch as TBatch
+
+    rh, (rin, rout) = Runtime.init_circuit(
+        1, _algebra_circuit(add_input_zset, jnp.int64))
+    th, (tin, tout) = TRuntime.init_circuit(
+        1, _algebra_circuit(tadd_input_zset, torch.int64), device="cpu")
+    ch = compile_circuit(th)
+    ref_ch = rcompile_circuit(Runtime.init_circuit(
+        1, _algebra_circuit(add_input_zset, jnp.int64))[0])
+    assert ch.deferred_consolidations == ref_ch.deferred_consolidations == 1
+    kinds = {type(cn).__name__ for cn in ch.cnodes}
+    assert {"CPlus", "CMinus", "CNeg", "CSumN", "CDistinct"} <= kinds
+    # stream distinct is a pure Batch -> Batch node
+    assert any(type(cn).__name__ == "CPure"
+               and type(cn.op).__name__ == "StreamDistinct"
+               for cn in ch.cnodes)
+    seen = 0
+    for t in range(5):
+        rows = _algebra_rows(t)
+        for h, r in zip(rin, rows):
+            h.push_batch(Batch.from_tuples(r, (jnp.int64,)))
+        rh.step()
+        feeds = {h: TBatch.from_tuples(r, (torch.int64,), device="cpu")
+                 for h, r in zip(tin, rows)}
+        ch.step(tick=t, feeds=feeds)
+        ch.validate()
+        for r, o in zip(rout, tout):
+            want = r.to_dict()
+            got = ch.output(o)
+            assert (got.to_dict() if got is not None else {}) == want, t
+            seen += len(want)
+    assert seen > 20
+
+
+def _placement_circuit(add_input, i64):
+    """An order-preserving map fed by a join and feeding a trace (the
+    distinct's), a join -> filter -> map chain to the sink, and a
+    flat_map to the sink."""
+    def build(c):
+        s, h = add_input(c, (i64,), (i64,))
+        t, g = add_input(c, (i64,), (i64,))
+        j = s.join_index(t, lambda k, a, b: ((k[0],), (a[0], b[0])),
+                         (i64,), (i64, i64), name="pj")
+        # dropping the trailing column is monotone in the row order
+        up = j.map_rows(lambda k, v: (k, (v[0],)), (i64,), (i64,),
+                        name="pmap", preserves_order=True)
+        o1 = up.distinct().output()
+        j2 = s.join_index(t, lambda k, a, b: ((k[0],), (a[0] - b[0],)),
+                          (i64,), (i64,), name="pj2")
+        o2 = j2.filter_rows(lambda k, v: v[0] > 0).map_rows(
+            lambda k, v: ((v[0] % 7,), (k[0],)), (i64,), (i64,),
+            name="pflip").output()
+
+        def two(k, v):
+            row = _arange2(v[0])
+            return ((_twice(k[0]),), (_twice(v[0] % 3) + row,),
+                    (_twice(v[0]) % 2 == 0) | (row == 0))
+
+        o3 = s.flat_map_rows(two, 2, (i64,), (i64,), name="pflat").output()
+        return (h, g), (o1, o2, o3)
+    return build
+
+
+def test_placement_pass_matches_reference():
+    """The placement rule as the reference writes it: an order-preserving
+    map needs consolidated input, so the join feeding it keeps its
+    consolidation; a join -> filter -> map chain defers the join's and
+    the map's; a flat_map to the sink defers its own. The deferred count
+    equals the reference's and every output equals the reference's host
+    engine, tick for tick, with retractions."""
+    from dbsp_tpu.compiled import compile_circuit as rcompile_circuit
+    from dbsp_tpu.operators import add_input_zset
+    from dbsp_tpu.zset.batch import Batch
+    from dbsp_tpu_torch.operators import add_input_zset as tadd_input_zset
+    from dbsp_tpu_torch.zset.batch import Batch as TBatch
+
+    rh, (rin, rout) = Runtime.init_circuit(
+        1, _placement_circuit(add_input_zset, jnp.int64))
+    th, (tin, tout) = TRuntime.init_circuit(
+        1, _placement_circuit(tadd_input_zset, torch.int64), device="cpu")
+    ch = compile_circuit(th)
+    ref_ch = rcompile_circuit(Runtime.init_circuit(
+        1, _placement_circuit(add_input_zset, jnp.int64))[0])
+    assert ch.deferred_consolidations == ref_ch.deferred_consolidations == 3
+    deferred = sorted(cn.op.name for cn in ch.cnodes
+                      if getattr(cn, "defer_consolidate", False))
+    assert deferred == ["pflat", "pflip", "pj2"], deferred
+    rng = np.random.default_rng(5)
+    live = [[], []]
+    seen = 0
+    for tick in range(5):
+        pushed = []
+        for side in range(2):
+            rows = [(int(rng.integers(0, 12)), int(rng.integers(-20, 20)), 1)
+                    for _ in range(int(rng.integers(3, 9)))]
+            if tick >= 2 and live[side]:
+                drop = int(rng.integers(0, len(live[side])))
+                rows.append((*live[side].pop(drop), -1))
+            live[side] += [(k, v) for k, v, w in rows if w > 0]
+            cols = [np.array([r[i] for r in rows], np.int64)
+                    for i in range(3)]
+            rin[side].push_batch(Batch.from_columns(
+                [cols[0]], [cols[1]], cols[2], cap=16))
+            pushed.append(TBatch.from_columns([cols[0]], [cols[1]], cols[2],
+                                              device="cpu", cap=16))
+        rh.step()
+        ch.step(tick, feeds=dict(zip(tin, pushed)))
+        ch.validate()
+        for r, o in zip(rout, tout):
+            want = r.to_dict()
+            got = ch.output(o)
+            assert (got.to_dict() if got is not None else {}) == want, tick
+            seen += len(want)
+    assert seen > 30
+
+
 def test_unported_operator_raises():
     from dbsp_tpu_torch.operators import add_input_zset
 
     def build(c):
         s, h = add_input_zset(c, [torch.int64], [])
-        return h, s.distinct().output()
+        return h, s.apply(lambda b: b).output()
 
     h, _ = TRuntime.init_circuit(1, build, device="cpu")
     with pytest.raises(NotImplementedError, match="no compiled equivalent"):

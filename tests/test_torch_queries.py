@@ -1,8 +1,13 @@
-"""Nexmark q3, q8 and q15 on the port's host runtime against dbsp_tpu's,
-tick for tick: the same events (the generator is a numpy copy) and the
-same consolidated output rows each tick. q8 runs the ladder join with a
+"""Nexmark queries on the port's host runtime against dbsp_tpu's, tick
+for tick: the same events (the generator is a numpy copy) and the same
+consolidated output rows each tick. q8 runs the ladder join with a
 zero-value-column side and incremental distinct; q15 runs distinct over
-the bids stream and the linear count, which has no accumulator columns."""
+the bids stream and the linear count, which has no accumulator columns;
+q0, q1, q21 and q22 are maps (q0 and q1 order-preserving, sort-free);
+q2 and q14 filter and map; q12 folds a tick counter and attaches it with
+apply2; q13 joins a generator's side table; q17 joins the general Min
+and Max with the linear Count and Average; q20 joins bids with filtered
+auctions."""
 
 import pytest
 
@@ -24,10 +29,17 @@ def _circuit(runtime, build_inputs_fn, query, **kw):
     return runtime.init_circuit(1, build, **kw)
 
 
-@pytest.mark.parametrize("name,min_rows", [("q3", 5), ("q8", 50),
-                                           ("q15", 3)])
+# (events a tick, ticks): q12's windows span Q12_WINDOW_TICKS ticks, so
+# it runs past the first window's end
+_SCHEDULE = {"q12": (400, 2 + tqueries.Q12_WINDOW_TICKS)}
+
+
+@pytest.mark.parametrize("name,min_rows", [
+    ("q3", 5), ("q8", 50), ("q15", 3), ("q0", 8000), ("q1", 8000),
+    ("q2", 30), ("q12", 400), ("q13", 8000), ("q14", 1000), ("q17", 1000),
+    ("q20", 1000), ("q21", 8000), ("q22", 8000)])
 def test_query_equals_reference_tick_for_tick(name, min_rows):
-    per, ticks = 3000, 3
+    per, ticks = _SCHEDULE.get(name, (3000, 3))
     rh, (rhandles, rout) = _circuit(Runtime, build_inputs,
                                     getattr(queries, name))
     th, (thandles, tout) = _circuit(TRuntime, tbuild_inputs,
