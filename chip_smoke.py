@@ -85,6 +85,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
              20,000 random rows per input per tick for 5 ticks (grow,
              restore and replay on overflow): every tick equal to the same
              circuit on the host engine on the card;
+4d. scanned — in a process of its own (profiling graph replays left
+             later profiler sessions of the process without their first
+             device events): compiled q3, q4, q8 and q17 as in 4b, each
+             run twice from the same warm-up: eagerly, then in the scanned mode (each
+             validation interval of 8 ticks one replay of a CUDA graph,
+             captured on first use), then 4 more intervals, each under
+             the profiler; the first that both runs' profiles can read
+             (their sentinels kept, no capture inside) is the profiled
+             interval of both. At every interval's end the
+             scanned run's state (every leaf, bit for bit, and its layout)
+             and last-tick output equal the eager run's at the same tick
+             (copied to the host); exactly one graph replay an interval; 0
+             host syncs in the host work around the replays (a capture's
+             own synchronize is outside it); in the profiled interval each
+             kernel of the path launches a tick on the card (the wrappers'
+             counts see only the captures) as often as in the eager run's
+             same interval, and more than 0 times; no interval readable in
+             both runs fails the phase.
+             Printed beside the eager
+             run's: events/s (with and without the capture), chunk times
+             and their p50 / p99 (and over the 8 ticks), dispatch ms a
+             tick, busy share, device ops and port-kernel launches a tick,
+             captures by cause, peak allocated memory and the bytes copied
+             into the graph's buffers each interval. A capture that fails
+             fails the run;
+4e. driver — compiled q4 behind CompiledCircuitDriver, fed through its
+             input handles by the numpy generator at 100,000 events a tick
+             for 12 ticks, at validation cadences 1 and 4, with flush()
+             after 10 ticks (a partial interval at cadence 4): every
+             delivered tick equals the host engine on the card, nothing is
+             delivered inside an open interval, and the default seed
+             capacities force grows with exact replays;
 5. cross   — for each host query, the first 3 ticks of 10,000 events
              through the port on the CPU (plain versions) and on the card:
              equal rows per tick;
@@ -117,7 +149,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 8. graph   — the largest main-path call of the aggregate kernel, of the
              ladder join and of the ladder gather, each captured in a
              CUDA graph and replayed: equal to the eager call, or the
-             capture's refusal reported.
+             capture's refusal reported; and a lex probe over 606
+             argument slots (a table uploaded from the host per launch),
+             whose capture must raise.
 
 Each phase prints its wall time on a line of its own ("phase ...: s").
 Output: the phase summaries, then one line {"kernels": [...]}, then the
@@ -202,7 +236,20 @@ COMPILED = {
     "q8": ("lex_probe_ladder", "join_ladder", "rank_merge"),
     "q17": ("agg_ladder", "join_ladder", "gather_ladder", "rank_merge"),
 }
+# the device kernels (profile_query.PORT_KERNELS) that each wrapper on a
+# compiled path launches: the profiler sees these, and join_ladder and
+# gather_ladder launch the same two
+DEVICE_KERNELS = {
+    "lex_probe_ladder": ("probe_ladder_kernel",),
+    "join_ladder": ("consumer_probe_kernel", "consumer_expand_kernel"),
+    "gather_ladder": ("consumer_probe_kernel", "consumer_expand_kernel"),
+    "rank_merge": ("rank_merge_kernel",),
+    "agg_ladder": ("agg_ladder_kernel",),
+}
 C_WARM, C_TICKS, C_VALIDATE, C_PROFILE = 4, 24, 8, 8
+# intervals after phase 4d's measured ones, each held to the eager run and
+# profiled; the first both runs' profiles can read is the compared one
+SCAN_PROFILE_INTERVALS = 4
 # (warm, measured, profiled) ticks of a compiled query, where not C_WARM,
 # C_TICKS, C_PROFILE
 COMPILED_DEPTH = {"q17": (3, 8, 4)}
@@ -1564,17 +1611,49 @@ def run_query(name: str, all_events: dict):
 # ---------------------------------------------------------------------------
 
 
-def port_kernel_ms(dev_kernels: dict, ticks: int) -> dict:
-    """Device ms per profiled tick of each of the port's kernels (its
-    template instances summed), from {event name: [ms, launches]} over
-    ``ticks`` ticks."""
+def profile_run(fn):
+    """torch.profiler over ``fn`` and a synchronize: {device op name: [ms,
+    launches]}, the wall ms, and whether the session kept its first
+    events (it starts with throwaway sentinel kernels, as device_ms's
+    sessions do, and leaves them out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_SENTINELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tp) * 1e3
+    dev: dict = {}
+    kept = False
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if SENTINEL_KERNEL in ev.name:
+            kept = True
+            continue
+        k = dev.setdefault(ev.name[:80], [0.0, 0])
+        k[0] += ev.device_time_total / 1e3
+        k[1] += 1
+    return dev, wall_ms, kept
+
+
+def port_kernel_per_tick(dev_kernels: dict, ticks: int,
+                         field: int = 0) -> dict:
+    """Device ms (``field`` 0) or launches (``field`` 1) per profiled tick
+    of each of the port's kernels (its template instances summed), from
+    {event name: [ms, launches]} over ``ticks`` ticks."""
     from dbsp_tpu_torch.profile_query import port_kernel
 
     out: dict = {}
-    for event, (ms, _) in dev_kernels.items():
+    for event, v in dev_kernels.items():
         k = port_kernel(event)
         if k is not None:
-            out[k] = out.get(k, 0.0) + ms / ticks
+            out[k] = out.get(k, 0) + v[field] / ticks
     return out
 
 
@@ -1630,23 +1709,13 @@ def probe_shape(lookups: list, last_call: tuple, busy_ops: float) -> dict:
             "sum_loop_ops_share_of_tick": (ops - 1) / busy_ops}
 
 
-def run_compiled(name: str) -> dict:
-    """Drive one query on the compiled engine on the card (see the module
-    doc, phase 4b); fail on any disagreement. Returns its launches."""
-    import gc
-    import traceback
-    import warnings
-
-    import torch
-
+def compiled_query(name: str, c_ticks: int):
+    """Query ``name`` compiled on the card, fed by device-side generation
+    at EVENTS_PER_TICK, with the level count the reference bench picks
+    for ``c_ticks`` measured ticks: (the handle, its output's index)."""
     from dbsp_tpu_torch.compiled import cnodes, compile_circuit
-    from dbsp_tpu_torch.nexmark import (GeneratorConfig, NexmarkGenerator,
-                                        device_gen)
-    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
-    from dbsp_tpu_torch.zset import cursor
+    from dbsp_tpu_torch.nexmark import GeneratorConfig, device_gen
 
-    c_warm, c_ticks, c_profile = COMPILED_DEPTH.get(
-        name, (C_WARM, C_TICKS, C_PROFILE))
     ept = EVENTS_PER_TICK // 50
     cfg = GeneratorConfig(seed=1)
     handle, (handles, out) = build_query(name)
@@ -1658,10 +1727,37 @@ def run_compiled(name: str) -> dict:
         p, a, b = device_gen.generate_tick(cfg, tick * ept, ept)
         return {hp: p, ha: a, hb: b}
 
-    # the level count for this run length, as the reference bench picks it
     ch = compile_circuit(handle, gen_fn=gen_fn,
                          trace_levels=cnodes.levels_for_run(c_ticks))
-    out_idx = ch._op_to_index[id(out._op)]
+    return ch, ch._op_to_index[id(out._op)]
+
+
+def warm_compiled(ch, c_warm: int, c_ticks: int) -> None:
+    """The reference bench's warm-up: ``c_warm`` ticks validated every
+    tick, presize for the run, one more tick."""
+    ch.run_ticks(0, c_warm, validate_every=1, project_ratio=4.0)
+    ch.presize((c_warm + 1 + c_ticks) / c_warm, interval=C_VALIDATE)
+    ch.run_ticks(c_warm, 1, validate_every=1, project_ratio=4.0)
+    ch.block()
+
+
+def run_compiled(name: str) -> dict:
+    """Drive one query on the compiled engine on the card (see the module
+    doc, phase 4b); fail on any disagreement. Returns its launches."""
+    import gc
+    import traceback
+    import warnings
+
+    import torch
+
+    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset import cursor
+
+    c_warm, c_ticks, c_profile = COMPILED_DEPTH.get(
+        name, (C_WARM, C_TICKS, C_PROFILE))
+    cfg = GeneratorConfig(seed=1)
+    ch, out_idx = compiled_query(name, c_ticks)
     outs = {}
     syncs = []
     sync_sites: dict = {}
@@ -1738,10 +1834,7 @@ def run_compiled(name: str) -> dict:
     ck_mod.reset_launches()
     t0 = time.perf_counter()
     try:
-        ch.run_ticks(0, c_warm, validate_every=1, project_ratio=4.0)
-        ch.presize((c_warm + 1 + c_ticks) / c_warm, interval=C_VALIDATE)
-        ch.run_ticks(c_warm, 1, validate_every=1, project_ratio=4.0)
-        ch.block()
+        warm_compiled(ch, c_warm, c_ticks)
         warm_s = time.perf_counter() - t0
         warm_replays = ch.overflow_replays
         ch.reset_timing()
@@ -1761,20 +1854,9 @@ def run_compiled(name: str) -> dict:
     measured_replays = ch.overflow_replays - warm_replays
     launches = dict(ck_mod.LAUNCHES)
     # the card's busy share over one more validation interval, profiled
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        tp = time.perf_counter()
-        ch.run_ticks(m0 + c_ticks, c_profile, validate_every=C_VALIDATE,
-                     block_each=True, project_ratio=4.0)
-        ch.block()
-        wall_ms = (time.perf_counter() - tp) * 1e3
-    dev_kernels: dict = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            k = dev_kernels.setdefault(ev.name[:80], [0.0, 0])
-            k[0] += ev.device_time_total / 1e3
-            k[1] += 1
+    dev_kernels, wall_ms, _ = profile_run(lambda: ch.run_ticks(
+        m0 + c_ticks, c_profile, validate_every=C_VALIDATE, block_each=True,
+        project_ratio=4.0))
     busy_ms = sum(v[0] for v in dev_kernels.values())
     top = sorted(dev_kernels.items(), key=lambda kv: -kv[1][0])[:12]
     Recorder.query = None
@@ -1842,7 +1924,7 @@ def run_compiled(name: str) -> dict:
         "device_ops_per_tick": sum(v[1] for v in dev_kernels.values())
         / c_profile,
         "device_top_ms_per_tick": {k: v[0] / c_profile for k, v in top},
-        "port_kernels_ms_per_tick": port_kernel_ms(dev_kernels, c_profile),
+        "port_kernels_ms_per_tick": port_kernel_per_tick(dev_kernels, c_profile),
         "distinct_lookup": probe,
         "dispatch_ms_per_measured_tick": sum(dispatch_ns) / 1e6
         / max(len(dispatch_ns), 1),
@@ -1953,6 +2035,365 @@ def run_algebra() -> dict:
     return launches, {k: [] for k in launches}
 
 
+def state_record(ch, out_idx) -> tuple:
+    """A copy on the host of a compiled handle's state and last-tick
+    output, to hold another run against (on the host, so that it takes
+    no device memory from the runs measured): the state layout
+    (structure, shapes, dtypes, run metadata), every state leaf, and the
+    canonical output's leaves."""
+    from dbsp_tpu_torch.compiled.compiler import _layout, _leaves
+
+    out = ch.canonicalize_sink(ch.last_outputs.get(out_idx))
+    return (_layout(ch.states), [t.cpu() for t in _leaves(ch.states)],
+            [t.cpu() for t in _leaves(out)] if out is not None else [])
+
+
+def record_diff(a: tuple, b: tuple):
+    """Where two state records differ (None if they are equal bit for
+    bit)."""
+    import torch
+
+    (la, ta, oa), (lb, tb, ob) = a, b
+    if la != lb:
+        return "the state layout"
+    for i, (x, y) in enumerate(zip(ta, tb)):
+        if not torch.equal(x, y):
+            return f"state leaf {i} of {len(ta)}"
+    if len(oa) != len(ob) or not all(torch.equal(x, y)
+                                     for x, y in zip(oa, ob)):
+        return "the last tick's output"
+    return None
+
+
+def profile_summary(dev_kernels: dict, wall_ms: float, ticks: int) -> dict:
+    """A profiled run of ``ticks`` ticks (profile_run's result), a tick
+    at a time: the card's busy share, device ms and ops, the port
+    kernels' launches and the largest device consumers."""
+    busy_ms = sum(v[0] for v in dev_kernels.values())
+    top = sorted(dev_kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"busy_share": busy_ms / wall_ms,
+            "busy_ms_per_tick": busy_ms / ticks,
+            "wall_ms_per_tick": wall_ms / ticks,
+            "device_ops_per_tick": sum(v[1] for v in dev_kernels.values())
+            / ticks,
+            "port_kernel_launches_per_tick": port_kernel_per_tick(
+                dev_kernels, ticks, 1),
+            "device_top_ms_per_tick": {k: v[0] / ticks for k, v in top}}
+
+
+def pct(samples: list, q: float) -> float:
+    """The ``q`` quantile of ``samples`` (ns), in ms."""
+    s = sorted(samples)
+    return s[min(len(s) - 1, int(len(s) * q))] / 1e6
+
+
+def run_scanned(name: str) -> None:
+    """Phase 4d (module doc): query ``name`` compiled, run eagerly and
+    then scanned (each validation interval one CUDA-graph replay), from
+    the same warm-up; at every chunk end the scanned run's states and
+    last-tick output equal the eager run's at the same tick, bit for
+    bit."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    c_warm, c_ticks, _ = COMPILED_DEPTH.get(name, (C_WARM, C_TICKS,
+                                                   C_PROFILE))
+    m0 = c_warm + 1
+    chunks = c_ticks // C_VALIDATE
+    snap_every = max(1, chunks // 2)
+    res: dict = {}
+    records: dict = {}
+    profiles: dict = {}  # mode: each extra interval's profile, or None
+    for mode in ("eager", "scanned"):
+        scan = mode == "scanned"
+        gc_collect()
+        ch, out_idx = compiled_query(name, c_ticks)
+        warm_compiled(ch, c_warm, c_ticks)
+        ch.reset_timing()
+        replays0, overflow0 = ch.graph_replays, ch.overflow_replays
+        dispatch_ns: list = []
+        chunk_ns: list = []
+        syncs: list = []
+        capture_ns: list = []
+        captured: list = []  # whether each chunk captured its graph
+        cb_ns = [0]
+        # the wrappers hold the handle's own methods as default arguments
+        # and leave no name in this frame, whose locals would keep the
+        # eager run's handle (and its memory) alive into the scanned run
+        if scan:
+            def timed_capture(*a, capture=ch._capture):
+                # a capture synchronizes by design (torch.cuda.graph):
+                # counted apart, outside the chunks' host work
+                torch.cuda.set_sync_debug_mode(0)
+                t = time.perf_counter_ns()
+                try:
+                    return capture(*a)
+                finally:
+                    capture_ns.append(time.perf_counter_ns() - t)
+                    torch.cuda.set_sync_debug_mode("warn")
+
+            def counted_chunk(t0, n, block=False,
+                              step_scanned=ch.step_scanned):
+                n_cap = len(capture_ns)
+                t = time.perf_counter_ns()
+                found = sync_warnings(lambda: step_scanned(t0, n))
+                dispatch_ns.append(time.perf_counter_ns() - t)
+                ch.block()
+                chunk_ns.append(time.perf_counter_ns() - t)
+                syncs.append(found)
+                captured.append(len(capture_ns) > n_cap)
+
+            ch._capture = timed_capture
+            ch.step_scanned = counted_chunk
+            del timed_capture, counted_chunk
+        else:
+            def timed_dispatch(tick, feeds=None, dispatch=ch._dispatch):
+                t = time.perf_counter_ns()
+                dispatch(tick, feeds)
+                dispatch_ns.append(time.perf_counter_ns() - t)
+
+            ch._dispatch = timed_dispatch
+            del timed_dispatch
+
+        def at_chunk_end(next_tick):
+            t = time.perf_counter_ns()
+            rec = state_record(ch, out_idx)
+            if scan:
+                want = records.pop(next_tick, None)
+                if want is None:
+                    fail(f"scanned {name}: a chunk ended at tick "
+                         f"{next_tick}, where the eager run validated none")
+                where = record_diff(want, rec)
+                if where:
+                    fail(f"scanned {name} at tick {next_tick}: {where} "
+                         "differs from the eager run's")
+            else:
+                records[next_tick] = rec
+            cb_ns[0] += time.perf_counter_ns() - t
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck_mod.reset_launches()
+        t0 = time.perf_counter_ns()
+        ch.run_ticks(m0, c_ticks, validate_every=C_VALIDATE,
+                     block_each=True, scan=scan, project_ratio=4.0,
+                     snapshot_every=snap_every, on_validated=at_chunk_end)
+        ch.block()
+        elapsed_ns = time.perf_counter_ns() - t0 - cb_ns[0]
+        launches = dict(ck_mod.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        replays = ch.graph_replays - replays0
+        measured_overflows = ch.overflow_replays - overflow0
+        if not scan:
+            for k in COMPILED[name]:
+                if launches[k] <= 0:
+                    fail(f"kernel {k} was not launched on the eager "
+                         f"compiled {name} path")
+        out = {
+            "events_per_s": c_ticks * EVENTS_PER_TICK / elapsed_ns * 1e9,
+            "dispatch_ms_per_tick": (sum(dispatch_ns) - sum(capture_ns))
+            / 1e6 / c_ticks,
+            "peak_allocated": peak,
+            "overflow_replays_measured": measured_overflows,
+            # scanned, the wrappers run only while a graph is captured
+            # (and in the warm-up tick before it), never at a replay: the
+            # launches a replay makes are the profiler's
+            ("launches_counted_in_python_at_captures" if scan
+             else "launches_counted_in_python"): launches,
+            "state_bytes": state_bytes(ch.states),
+        }
+        if scan:
+            if replays != len(chunk_ns) or \
+                    len(chunk_ns) != chunks + measured_overflows:
+                fail(f"scanned {name}: {replays} graph replays for "
+                     f"{len(chunk_ns)} chunks of {chunks} intervals")
+            bad = [f for f in syncs if f]
+            if bad:
+                fail(f"scanned {name}: host syncs around the replays: "
+                     f"{bad[0][:3]}")
+            out.update({
+                "dispatch_ms_per_tick_with_capture": sum(dispatch_ns) / 1e6
+                / c_ticks,
+                "events_per_s_without_capture": c_ticks * EVENTS_PER_TICK
+                / (elapsed_ns - sum(capture_ns)) * 1e9,
+                "chunk_ms": [c / 1e6 for c in chunk_ns],
+                "chunk_captured": captured[:],
+                "chunk_p50_ms": pct(chunk_ns, 0.5),
+                "chunk_p99_ms": pct(chunk_ns, 0.99),
+                "chunk_p50_ms_per_tick": pct(chunk_ns, 0.5) / C_VALIDATE,
+                "chunk_p99_ms_per_tick": pct(chunk_ns, 0.99) / C_VALIDATE,
+                "capture_ms": [c / 1e6 for c in capture_ns],
+                "captures_by_cause": dict(ch.captures),
+                "graph_replays": replays,
+                "host_syncs_around_replays": 0,
+                "bytes_copied_per_interval": list(ch.scan_copy_bytes),
+            })
+        else:
+            lat = ch.step_times_ns
+            out.update({"tick_p50_ms": pct(lat, 0.5),
+                        "tick_p99_ms": pct(lat, 0.99)})
+        # SCAN_PROFILE_INTERVALS more intervals, each held to the eager run
+        # too and each profiled. An interval's profile is readable where
+        # the profiler kept its sentinels and, scanned, no capture fell in
+        # it; the runs are compared in the same interval (a maintain that
+        # merges levels launches more kernels in one interval than in the
+        # next).
+        readable = []
+        for i in range(SCAN_PROFILE_INTERVALS):
+            t_int = m0 + c_ticks + i * C_VALIDATE
+            caps_before = sum(ch.captures.values())
+            dev, wall_ms, kept = profile_run(
+                lambda t=t_int: ch.run_ticks(
+                    t, C_VALIDATE, validate_every=C_VALIDATE, block_each=True,
+                    scan=scan, project_ratio=4.0))
+            at_chunk_end(t_int + C_VALIDATE)
+            captured_in = sum(ch.captures.values()) - caps_before
+            readable.append(profile_summary(dev, wall_ms, C_VALIDATE)
+                            if kept and not captured_in else None)
+        profiles[mode] = readable
+        out["profile_readable"] = [p is not None for p in readable]
+        res[mode] = out
+        del ch
+    both = [i for i in range(SCAN_PROFILE_INTERVALS)
+            if profiles["eager"][i] and profiles["scanned"][i]]
+    if not both:
+        fail(f"scanned {name}: in none of {SCAN_PROFILE_INTERVALS} profiled "
+             "intervals did both runs' profiles keep their sentinels with no "
+             f"capture inside (eager {res['eager']['profile_readable']}, "
+             f"scanned {res['scanned']['profile_readable']})")
+    for mode in res:
+        prof = dict(profiles[mode][both[0]], interval=both[0])
+        res[mode]["profiled"] = prof
+        for k in COMPILED[name]:
+            for d in DEVICE_KERNELS[k]:
+                if prof["port_kernel_launches_per_tick"].get(d, 0) <= 0:
+                    fail(f"kernel {k} ({d}) was not launched in the "
+                         f"profiled interval of the {mode} compiled "
+                         f"{name} path")
+    ek = res["eager"]["profiled"]["port_kernel_launches_per_tick"]
+    sk = res["scanned"]["profiled"]["port_kernel_launches_per_tick"]
+    if ek != sk:
+        fail(f"scanned {name}: device launches a tick in interval "
+             f"{both[0]} {sk}, eager {ek}")
+    if records:
+        fail(f"scanned {name}: no chunk ended at ticks {sorted(records)}")
+    say(json.dumps({
+        "phase": f"{name}-scanned", "device": "cuda", "card": CARD[0],
+        "events_per_tick": EVENTS_PER_TICK, "warm_ticks": m0,
+        "ticks": c_ticks, "chunk": C_VALIDATE, "profiled_ticks": C_VALIDATE,
+        "launches_equal_to_eager": True,
+        "states_equal_at_every_chunk_end": True, **res}))
+
+
+def gc_collect() -> None:
+    """Free what the last run left on the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+DRIVER_TICKS = 12
+DRIVER_CADENCES = (1, 4)
+DRIVER_FLUSH_AT = 10  # a flush() after this many ticks: a partial interval
+
+
+def run_driver() -> tuple:
+    """Phase 4e (module doc): compiled q4 behind CompiledCircuitDriver,
+    fed through its input handles by the numpy generator, against the
+    host engine on the card, at each cadence of DRIVER_CADENCES. Returns
+    the launches of the runs."""
+    import torch
+
+    from dbsp_tpu_torch.compiled.driver import CompiledCircuitDriver
+    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    name = "q4"
+    Recorder.paused += 1  # pushed rows: not the timed main-path calls
+    hgen = NexmarkGenerator(GeneratorConfig(seed=1))
+    hh, (hhandles, hout) = build_query(name)
+    want = []
+    for t in range(DRIVER_TICKS):
+        hgen.feed(hhandles, t * EVENTS_PER_TICK, (t + 1) * EVENTS_PER_TICK)
+        hh.step()
+        want.append(hout.to_dict())
+    if not any(want):
+        fail("driver: the host engine's q4 gave no rows to compare")
+    report = {}
+    launches = {k: 0 for k in ck_mod.LAUNCHES}
+    per_tick = {k: [] for k in ck_mod.LAUNCHES}
+    for every in DRIVER_CADENCES:
+        gc_collect()
+        gen = NexmarkGenerator(GeneratorConfig(seed=1))
+        handle, (handles, out) = build_query(name)
+        drv = CompiledCircuitDriver(handle, validate_every=every)
+        delivered = []
+        deliver = out._op.eval
+        out._op.eval = lambda v: (delivered.append(v.to_dict()), deliver(v))
+        early = []
+        ck_mod.reset_launches()
+        t0 = time.perf_counter()
+        for t in range(DRIVER_TICKS):
+            before = dict(ck_mod.LAUNCHES)
+            gen.feed(handles, t * EVENTS_PER_TICK, (t + 1) * EVENTS_PER_TICK)
+            drv.step()
+            for k, c in ck_mod.LAUNCHES.items():
+                per_tick[k].append(c - before[k])
+            # what is delivered is every tick of the closed intervals, and
+            # nothing of the open one
+            closed = t + 1 - len(drv._retained)
+            if len(delivered) != closed or drv.interval_open != bool(
+                    drv._retained):
+                early.append(t)
+            if t + 1 == DRIVER_FLUSH_AT:
+                drv.flush()
+                if len(delivered) != t + 1 or drv.interval_open:
+                    fail(f"driver (every {every}): flush() left ticks "
+                         f"{len(delivered)}..{t} undelivered")
+        drv.flush()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        for k, c in ck_mod.LAUNCHES.items():
+            launches[k] += c
+        if early:
+            fail(f"driver (every {every}): deliveries out of step with the "
+                 f"closed intervals after ticks {early}")
+        if len(delivered) != DRIVER_TICKS:
+            fail(f"driver (every {every}): {len(delivered)} ticks "
+                 f"delivered of {DRIVER_TICKS}")
+        for t, (got, w) in enumerate(zip(delivered, want)):
+            if got != w:
+                fail(f"driver (every {every}) tick {t} differs from the host "
+                     f"engine: {sorted(got.items())[:5]} vs "
+                     f"{sorted(w.items())[:5]}")
+        if drv.ch.overflow_replays <= 0:
+            fail(f"driver (every {every}): no grow and exact replay")
+        lat = drv.step_latencies_ns
+        report[f"every_{every}"] = {
+            "events_per_s": DRIVER_TICKS * EVENTS_PER_TICK / elapsed,
+            "step_p50_ms": pct(lat, 0.5), "step_p99_ms": pct(lat, 0.99),
+            "overflow_replays": drv.ch.overflow_replays,
+            "host_overhead_ms": {k: sum(v) / 1e6 for k, v in
+                                 drv.ch.host_overhead_ns.items()},
+            "delivered_ticks": len(delivered),
+            "output_rows": sum(len(d) for d in delivered)}
+        del drv, handle
+    Recorder.paused -= 1
+    for k in COMPILED[name]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the driver's {name} path")
+    say(json.dumps({"phase": f"{name}-driver", "device": "cuda",
+                    "card": CARD[0], "events_per_tick": EVENTS_PER_TICK,
+                    "ticks": DRIVER_TICKS, "flush_after": DRIVER_FLUSH_AT,
+                    "host_engine_equal": True, "launches": launches,
+                    **report}))
+    return launches, per_tick
+
+
 def cross_check(name: str) -> int:
     """The port on the CPU (plain versions) and on the card, same events:
     equal output rows per tick. Returns the rows compared."""
@@ -2006,16 +2447,19 @@ def time_ms(fn, reps: int = 10) -> float:
 
 
 # After the kernels are built, a profiler session in the building process
-# drops its first one or two device events (seen on the H100: 8 of 10
-# one-kernel calls counted). Each session of device_ms starts with this
-# many throwaway kernels (torch.cuda._sleep's), which it does not count.
-# A session that lost all of them (seen once in a while) is run again, up
-# to PROFILER_TRIES times; every such session is listed in
-# ``profiler_retries``.
-PROFILER_SENTINELS = 4
+# drops its first device events: one or two at first (seen on the H100:
+# 8 of 10 one-kernel calls counted), and later in a long run eight in
+# every session (6 of 14 events counted, session after session). Each
+# session of device_ms starts with this many throwaway kernels
+# (torch.cuda._sleep's), which it does not count. A session that lost all
+# of them is run again, up to PROFILER_TRIES times; every such session is
+# listed in ``profiler_retries``.
+PROFILER_SENTINELS = 64
 SENTINEL_KERNEL = "spin_kernel"
 PROFILER_TRIES = 6
 profiler_retries: list = []
+# the first device events a session dropped, by what it timed (where any)
+profiler_dropped: dict = {}
 
 
 def device_ms(fn, reps: int = 10, what: str = ""):
@@ -2040,13 +2484,16 @@ def device_ms(fn, reps: int = 10, what: str = ""):
             torch.cuda.synchronize()
         evs = [ev for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if any(SENTINEL_KERNEL in ev.name for ev in evs):
+        seen = sum(SENTINEL_KERNEL in ev.name for ev in evs)
+        if seen < PROFILER_SENTINELS:
+            profiler_dropped[what] = PROFILER_SENTINELS - seen
+        if seen:
             break
         profiler_retries.append(f"{what}: {len(evs)} device events")
     else:
         fail(f"the profiler dropped every sentinel kernel of "
              f"{PROFILER_TRIES} sessions timing {what}: the device times "
-             f"after them may be short")
+             f"after them may be short (retries: {profiler_retries[-12:]})")
     evs = [ev for ev in evs if SENTINEL_KERNEL not in ev.name]
     total_us = sum(ev.device_time_total for ev in evs)
     by_op: dict = {}
@@ -2344,6 +2791,31 @@ def graph_capture(name: str, args, kw) -> dict:
     return {"captured": True, "replay_equal": True,
             "replay_ms": time_ms(graph.replay),
             "eager_ms": time_ms(lambda: fn(*args, **kw))}
+
+
+def wide_capture_refused(dev) -> str:
+    """A probe over more argument slots than the by-value block takes
+    its table from a host buffer per launch, which a CUDA graph would
+    read at every replay: its capture must raise. Returns the refusal."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    rng = np.random.default_rng(17)
+    two = ((0, 50, np.int64),) * 2
+    tables = [consolidated(rng, 12, 16, dev, spec=two, nv=0).cols
+              for _ in range(200)]
+    q = consolidated(rng, 300, 512, dev, spec=two, nv=0)
+    torch.cuda.synchronize()
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            ck_mod.lex_probe_ladder_both(tables, q.cols)
+    except RuntimeError as e:
+        if "cannot capture" not in str(e):
+            raise
+        torch.cuda.synchronize()
+        return str(e)
+    fail("a probe over 606 argument slots was captured in a CUDA graph")
 
 
 def ladder_shape(args, kw, join: bool) -> dict:
@@ -2690,6 +3162,8 @@ def main() -> int:
                          "more trees)")
     ap.add_argument("--time-saved", nargs=2, metavar=("TREE", "FILE"),
                     help=argparse.SUPPRESS)  # one turn, run by --parent
+    ap.add_argument("--scanned", metavar="CARD",
+                    help=argparse.SUPPRESS)  # phase 4d, run by phase 4
     opts = ap.parse_args()
     try:
         import torch
@@ -2699,6 +3173,12 @@ def main() -> int:
         fail("CUDA is not available: this script needs an NVIDIA GPU")
     if opts.time_saved:
         time_saved(*opts.time_saved)
+        return 0
+    if opts.scanned:
+        CARD[0] = opts.scanned
+        for name in COMPILED:
+            with phase(f"scanned {name}"):
+                run_scanned(name)
         return 0
     try:
         from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
@@ -2751,6 +3231,19 @@ def main() -> int:
         # 4c. the Z-set algebra nodes, compiled, in feeds mode
         with phase("algebra"):
             runs["algebra-compiled"] = run_algebra()
+        # 4d. the scanned mode: each interval one CUDA-graph replay, state
+        #     for state equal to the eager run; in a process of its own,
+        #     since torch.profiler sessions over graph replays left this
+        #     process's later sessions without their first device events
+        #     (the kernel table's device times)
+        with phase("scanned"):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--scanned", smi_line], timeout=900)
+            if r.returncode != 0:
+                fail("phase 4d (the scanned mode) failed")
+        # 4e. the serving driver, fed through the input handles
+        with phase("driver"):
+            runs["q4-driver"] = run_driver()
     captured = {r.name: r.best for r in recs}
     most_queries = {r.name: r.alt for r in recs}
     calls = {name: (name, args, kw) for name, (_, args, kw, _) in
@@ -2780,7 +3273,9 @@ def main() -> int:
         say(json.dumps({"graph_capture": {
             name: graph_capture(name, *captured[name][1:3])
             for name in ("agg_ladder", "join_ladder", "gather_ladder")}}))
-    say(json.dumps({"profiler_retries": profiler_retries}))
+        say(json.dumps({"wide_probe_capture": wide_capture_refused(dev)}))
+    say(json.dumps({"profiler_retries": profiler_retries,
+                    "profiler_dropped_first_events": profiler_dropped}))
     say(json.dumps({"kernels": table}))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

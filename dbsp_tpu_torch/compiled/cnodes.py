@@ -372,6 +372,15 @@ class CSumN(CNode):
         return None, cat.consolidate()
 
 
+class CApply(CNode):
+    """Host ``apply``: the Python fn on the tick's value, which must read
+    no device value on the host. The reference's ``CMaybe`` branch (a
+    watermark's validity) comes with the watermark and window nodes."""
+
+    def eval(self, ctx, state, inputs):
+        return None, self.op.fn(inputs[0])
+
+
 class COutput(CNode):
     """Sink: expose the batch as the tick's output."""
 

@@ -19,8 +19,14 @@ The compiled engine takes the host out of the tick:
 
 The input side can be closed over too: pass ``gen_fn(tick) -> feeds``
 (e.g. :func:`dbsp_tpu_torch.nexmark.device_gen.generate_tick`); the tick
-index it gets is a device scalar that the handle advances on the card,
-so a tick uploads nothing.
+index it gets is a device scalar that the handle advances in place on the
+card, so a tick uploads nothing.
+
+Scanned mode (:meth:`CompiledHandle.step_scanned`, ``run_ticks(scan=True)``)
+runs a validation interval of n ticks as one dispatch: on CUDA one replay
+of a ``torch.cuda.CUDAGraph`` captured per (n, capacity signature), whose
+input buffers, tick cursor and requirement running max sit at fixed
+addresses; on the CPU the same n ticks eagerly, under the same contract.
 
 Between ticks: ticks run pipelined at depth 1 (:meth:`_run_pipelined`:
 dispatch t, wait for t-1), snapshots copy only the levels that changed
@@ -29,14 +35,15 @@ since the last one, and LSM maintenance is budgeted (rows moved per
 absorbs a drain cascade.
 
 Where the reference re-traces its jitted program after a capacity
-change, the eager tick simply reads the new ``cn.caps`` on its next run.
-Not ported (see ROADMAP): trace residency tiers, the scanned multi-tick
-program, the SPMD mesh, the maintenance JIT warm-up, the per-node
-profilers and the serving driver.
+change, the eager tick simply reads the new ``cn.caps`` on its next run,
+and the scanned mode captures a new graph. Not ported (see ROADMAP):
+trace residency tiers, the SPMD mesh, the maintenance JIT warm-up and the
+per-node profilers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -81,7 +88,7 @@ class _Ctx:
 def _cnode_for(node, trace_levels: int) -> CNode:
     from dbsp_tpu_torch.operators.aggregate import AggregateOp
     from dbsp_tpu_torch.operators.aggregate_linear import LinearAggregateOp
-    from dbsp_tpu_torch.operators.basic import Minus, Neg, Plus, SumN
+    from dbsp_tpu_torch.operators.basic import Apply, Minus, Neg, Plus, SumN
     from dbsp_tpu_torch.operators.distinct import DistinctOp, StreamDistinct
     from dbsp_tpu_torch.operators.filter_map import (FilterOp, FlatMapOp,
                                                      MapOp)
@@ -112,6 +119,8 @@ def _cnode_for(node, trace_levels: int) -> CNode:
         return cnodes.CNeg(node, op)
     if isinstance(op, SumN):
         return cnodes.CSumN(node, op)
+    if isinstance(op, Apply):
+        return cnodes.CApply(node, op)
     if isinstance(op, OutputOperator):
         return cnodes.COutput(node, op)
     raise NotImplementedError(
@@ -132,6 +141,107 @@ def _copy_tree(tree):
     if isinstance(tree, dict):
         return {k: _copy_tree(v) for k, v in tree.items()}
     return tree
+
+
+def _leaves(tree, out: Optional[List[torch.Tensor]] = None
+            ) -> List[torch.Tensor]:
+    """The tensors of a state tree, in a fixed order (dict keys sorted)."""
+    if out is None:
+        out = []
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, Batch):
+        out.extend((*tree.keys, *tree.vals, tree.weights))
+    elif isinstance(tree, tuple):
+        for t in tree:
+            _leaves(t, out)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    return out
+
+
+def _layout(tree):
+    """A hashable description of a state tree: its structure, every
+    tensor's shape and dtype, and every batch's run metadata, which picks
+    code paths (whether a consolidation is skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, Batch):
+        return ("batch", tuple(_layout(t) for t in tree.keys),
+                tuple(_layout(t) for t in tree.vals), _layout(tree.weights),
+                tree.runs)
+    if isinstance(tree, tuple):
+        return tuple(_layout(t) for t in tree)
+    if isinstance(tree, dict):
+        return tuple((k, _layout(tree[k])) for k in sorted(tree))
+    return type(tree).__name__
+
+
+def _same_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride())
+
+
+class _ScanGraph:
+    """One captured n-tick chunk: the CUDA graph, the state buffers it
+    reads and writes (the graph owns them), and the last tick's outputs
+    (graph-pool tensors, overwritten by the next replay).
+
+    The captured ticks end by copying every state leaf they wrote back
+    into its input buffer, so after a replay the state IS the buffers. A
+    leaf the ticks pass through (a deep trace level, which only
+    ``maintain`` replaces) is copied in before a replay when the handle's
+    state no longer holds the buffer itself. A batch of such leaves is
+    represented by a wrapper object that is renewed whenever a copy
+    changes its buffers: ``snapshot`` reuses the copy of a level whose
+    batch is the same object, so the same object must mean the same
+    content."""
+
+    def __init__(self, sig, graph, bufs, post, outputs, req):
+        self.sig, self.graph = sig, graph
+        self.bufs = bufs        # the input state tree (the buffers)
+        self.post = post        # the state tree the captured ticks made
+        self.outputs = outputs  # the last tick's outputs
+        self.req = req          # the requirement buffer it folds into
+        self.wrappers: Dict[int, Batch] = {}  # id(buffer batch) -> batch
+
+    def copy_in(self, cur, buf) -> int:
+        """Copy the leaves of state ``cur`` that are not the buffers of
+        ``buf`` into them; the bytes copied."""
+        if isinstance(buf, torch.Tensor):
+            if _same_buffer(cur, buf):
+                return 0
+            buf.copy_(cur)
+            return buf.element_size() * buf.numel()
+        if isinstance(buf, Batch):
+            n = sum(self.copy_in(c, b) for c, b in
+                    zip((*cur.cols, cur.weights), (*buf.cols, buf.weights)))
+            if n:
+                self.wrappers[id(buf)] = dataclasses.replace(buf)
+            return n
+        if isinstance(buf, tuple):
+            return sum(self.copy_in(c, b) for c, b in zip(cur, buf))
+        if isinstance(buf, dict):
+            return sum(self.copy_in(cur[k], buf[k]) for k in buf)
+        return 0
+
+    def state(self, post=None, buf=None):
+        """The state tree after a replay: the buffers, under the post-tick
+        metadata; a passed-through batch is its current wrapper."""
+        if post is None:
+            post, buf = self.post, self.bufs
+        if isinstance(post, torch.Tensor):
+            return buf
+        if isinstance(post, Batch):
+            if post is buf:
+                return self.wrappers.setdefault(id(buf), buf)
+            return Batch(buf.keys, buf.vals, buf.weights, post.runs)
+        if isinstance(post, tuple):
+            return tuple(self.state(p, b) for p, b in zip(post, buf))
+        if isinstance(post, dict):
+            return {k: self.state(post[k], buf[k]) for k in post}
+        return post
 
 
 def _drain_pair(receiver: Batch, source: Batch, cap: int):
@@ -179,16 +289,36 @@ class CompiledHandle:
             st = cn.init_state()
             if st is not None:
                 self.states[str(cn.node.index)] = st
-        # device-resident tick cursor: each tick returns tick + 1 on the
-        # card, so the steady state never uploads the tick index; a jump
-        # (first tick, restore, replay) makes it anew from the host int
-        self._tick_dev: Optional[torch.Tensor] = None
+        # device-resident tick cursor, one buffer for the handle's life: a
+        # tick advances it in place on the card, so the steady state never
+        # uploads the tick index; a jump (first tick, restore, replay)
+        # fills it from the host int
+        self._tick_dev = torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
         self._tick_host: Optional[int] = None
         self._checks: List[Tuple[CNode, str]] = []
-        self._req: Optional[torch.Tensor] = None  # device running max
+        # device running max of the requirements: a fixed buffer (made at
+        # the first tick, anew only if the requirement layout changes),
+        # updated in place and zeroed in place; dirty once a tick wrote it
+        self._req: Optional[torch.Tensor] = None
+        self._req_dirty = False
         self.last_req: Optional[List[int]] = None
         self.last_outputs: Dict[int, Batch] = {}
         self.step_times_ns: List[int] = []
+        # (sample index, cause) annotations: a spike in step_times_ns[i]
+        # is explained by the causes noted against i (maintain, snapshot,
+        # retrace: a graph capture)
+        self.tick_causes: List[Tuple[int, str]] = []
+        self._pending_causes: set = set()
+        # scanned mode: captured chunks by length n (only those of the
+        # current capacity signature), captures by cause, and the bytes
+        # copied into a graph's buffers before each replay
+        self._graphs: Dict[int, _ScanGraph] = {}
+        self._captured_n: set = set()
+        self._cap_cause: Optional[str] = None
+        self.captures: Dict[str, int] = {}
+        self.scan_copy_bytes: List[int] = []
+        self.graph_replays = 0
         # grow-and-replay cycles since construction
         self.overflow_replays = 0
         # wall time of each between-tick host phase
@@ -299,39 +429,65 @@ class CompiledHandle:
         return new_states, ctx.outputs, req
 
     def _tick_operand(self, tick: int) -> torch.Tensor:
-        """The device tick scalar for ``tick``: in the steady state the
-        previous tick already made it; after a jump it is filled on the
-        device from the host int (a fill, not a copy)."""
-        if self._tick_dev is None or self._tick_host != tick:
-            self._tick_dev = torch.full((), tick, dtype=torch.int64,
-                                        device=self.device)
+        """The device tick scalar, holding ``tick``: in the steady state the
+        previous tick already advanced it; after a jump it is filled in
+        place from the host int (a fill, not a copy)."""
+        if self._tick_host != tick:
+            self._tick_dev.fill_(tick)
             self._tick_host = tick
         return self._tick_dev
 
+    def _note_cause(self, cause: str) -> None:
+        """Annotate the NEXT latency sample with a spike cause (maintain,
+        snapshot, retrace); :meth:`_append_sample` consumes it."""
+        self._pending_causes.add(cause)
+
+    def _append_sample(self, ns: int) -> None:
+        idx = len(self.step_times_ns)
+        self.step_times_ns.append(ns)
+        if self._pending_causes:
+            for c in sorted(self._pending_causes):
+                self.tick_causes.append((idx, c))
+            self._pending_causes.clear()
+
     def reset_timing(self) -> None:
-        """Clear latency samples, host-overhead records and maintain stats
-        (between warm-up and a measured run)."""
+        """Clear latency samples, cause annotations, host-overhead records
+        and maintain stats (between warm-up and a measured run)."""
         self.step_times_ns.clear()
+        self.tick_causes.clear()
+        self._pending_causes.clear()
+        self.scan_copy_bytes.clear()
         for v in self.host_overhead_ns.values():
             v.clear()
         for k in self.maintain_stats:
             self.maintain_stats[k] = 0
+
+    def _fold_req(self, req: torch.Tensor) -> None:
+        """Fold one tick's requirements into the running max, in place."""
+        if self._req is None or self._req.shape != req.shape:
+            if self._req_dirty:
+                raise RuntimeError("the requirement layout changed inside a "
+                                   "validation interval")
+            self._req = torch.zeros_like(req)
+        torch.maximum(self._req, req, out=self._req)
+        self._req_dirty = True
+
+    def _clear_req(self) -> None:
+        """Forget the requirements recorded since the last validation."""
+        if self._req is not None:
+            self._req.zero_()
+        self._req_dirty = False
 
     def _dispatch(self, tick: int, feeds: Optional[Dict] = None) -> None:
         """Queue one tick's work on the card (no timing, no sync)."""
         f = self._feed_indices(feeds) if feeds else {}
         tick_dev = self._tick_operand(tick)
         states, outputs, req = self._run_nodes(self.states, tick_dev, f)
-        self._tick_dev, self._tick_host = tick_dev + 1, tick + 1
+        tick_dev.add_(1)
+        self._tick_host = tick + 1
         self.states = {**self.states, **states}
         self.last_outputs = outputs
-        if self._req is None:
-            self._req = req
-        elif self._req.shape != req.shape:
-            raise RuntimeError("the requirement layout changed inside a "
-                               "validation interval")
-        else:
-            self._req = torch.maximum(self._req, req)
+        self._fold_req(req)
 
     def step(self, tick: int = 0, feeds: Optional[Dict] = None,
              block: bool = False) -> None:
@@ -341,7 +497,111 @@ class CompiledHandle:
         self._dispatch(tick, feeds)
         if block:
             self.block()
-        self.step_times_ns.append(time.perf_counter_ns() - t0)
+        self._append_sample(time.perf_counter_ns() - t0)
+
+    # -- scanned mode ---------------------------------------------------------
+    def step_scanned(self, t0: int, n: int, block: bool = False) -> None:
+        """Run ticks [t0, t0+n) as one dispatch (``gen_fn`` mode only): the
+        outputs are the last tick's, the requirements a running max over
+        the n ticks, the tick cursor ends at t0+n, and the chunk gives one
+        latency sample.
+
+        On CUDA the chunk is one replay of a CUDA graph, captured on first
+        use for (n, the capacity signature) after a warm-up tick on a side
+        stream; a grow, presize, tail growth in maintain or restore's repad
+        changes the signature, so the next chunk captures anew and the
+        superseded graphs go with their memory pools. A capture that fails
+        raises: no eager ticks run in its place. After a replay the
+        outputs and the states are the graph's buffers, which the next
+        chunk overwrites: read them before it. On the CPU the n ticks run
+        eagerly under the same contract."""
+        assert self._gen_fn is not None, "scan mode needs a gen_fn"
+        t_start = time.perf_counter_ns()
+        if self.device.type == "cuda":
+            g = self._scan_graph(t0, n)
+            self.scan_copy_bytes.append(g.copy_in(self.states, g.bufs))
+            self._tick_operand(t0)
+            g.graph.replay()
+            self.graph_replays += 1
+            self._tick_host = t0 + n
+            self.states = g.state()
+            self.last_outputs = dict(g.outputs)
+            self._req_dirty = True
+        else:
+            for tt in range(t0, t0 + n):
+                self._dispatch(tt)
+        if block:
+            self.block()
+        self._append_sample(time.perf_counter_ns() - t_start)
+
+    def _scan_signature(self, n: int):
+        """What a captured chunk depends on besides its buffers' content:
+        its length, every node's capacities and slot size, and the state
+        layout."""
+        caps = tuple((cn.node.index, tuple(sorted(cn.caps.items())),
+                      getattr(cn, "_slot_cap", None)) for cn in self.cnodes)
+        return (n, caps, _layout(self.states))
+
+    def _scan_graph(self, t0: int, n: int) -> _ScanGraph:
+        """The captured chunk of length n for the current signature,
+        capturing it (and dropping every graph of another signature) if
+        there is none."""
+        sig = self._scan_signature(n)
+        g = self._graphs.get(n)
+        if g is not None and g.sig == sig and g.req is self._req:
+            return g
+        cause = ((self._cap_cause or "layout") if n in self._captured_n
+                 else "first")
+        # the superseded graphs go, with their pools, before the capture
+        self._graphs = {k: v for k, v in self._graphs.items()
+                        if k != n and v.sig[1:] == sig[1:]}
+        del g
+        g = self._graphs[n] = self._capture(t0, n, sig)
+        self._captured_n.add(n)
+        self.captures[cause] = self.captures.get(cause, 0) + 1
+        self._cap_cause = None
+        self._note_cause("retrace")
+        return g
+
+    def _capture(self, t0: int, n: int, sig) -> _ScanGraph:
+        """Capture n ticks over buffers of the graph's own (copies of the
+        current states), ending with the copy of every state leaf the
+        ticks wrote back into its buffer."""
+        # the graph's own buffers, a copy of the current states, which
+        # they now are
+        bufs = self.states = _copy_tree(self.states)
+        # a warm-up tick on a side stream, its results discarded: what a
+        # first call does outside stream order (a library's set-up) must
+        # not happen inside the capture
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            _, _, req = self._run_nodes(bufs, torch.full_like(
+                self._tick_dev, t0), {})
+        main.wait_stream(side)
+        if self._req is None or self._req.shape != req.shape:
+            self._fold_req(torch.zeros_like(req))
+        del req
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            st = bufs
+            for i in range(n):
+                ns, outs, req = self._run_nodes(st, self._tick_dev + i, {})
+                st = {**st, **ns}
+                torch.maximum(self._req, req, out=self._req)
+            self._tick_dev.add_(n)
+            written, held = _leaves(st), _leaves(bufs)
+            if [(t.shape, t.dtype) for t in written] != \
+                    [(t.shape, t.dtype) for t in held]:
+                raise RuntimeError("a tick changed the state layout: the "
+                                   "chunk cannot be captured")
+            # what the ticks wrote goes back into the buffers (a written
+            # leaf is a new tensor: a tick writes no state in place)
+            for o, b in zip(written, held):
+                if not _same_buffer(o, b):
+                    b.copy_(o)
+        return _ScanGraph(sig, graph, bufs, st, outs, self._req)
 
     def _run_pipelined(self, t0: int, upto: int) -> None:
         """Run ticks [t0, upto) at pipeline depth 1: queue tick t, then
@@ -362,7 +622,7 @@ class CompiledHandle:
             if prev is not None:
                 prev.synchronize()  # the pipeline barrier on tick t-1
             now = time.perf_counter_ns()
-            self.step_times_ns.append(now - t_prev)
+            self._append_sample(now - t_prev)
             t_prev = now
             prev = marker
 
@@ -376,7 +636,7 @@ class CompiledHandle:
         """ONE device-to-host read: check every capacity requirement
         recorded since the last validation. Raises
         :class:`CompiledOverflow`."""
-        if self._req is None or not self._checks:
+        if not self._req_dirty or not self._checks:
             return
         req = self._req.tolist()
         items = []
@@ -385,7 +645,7 @@ class CompiledHandle:
             if r > cn.caps[key]:
                 items.append((cn, key, r))
         self.last_req = req  # validated requirement levels (for presize)
-        self._req = torch.zeros_like(self._req)
+        self._clear_req()
         if items:
             raise CompiledOverflow(items)
 
@@ -417,6 +677,7 @@ class CompiledHandle:
         left = MAINTAIN_BUDGET_ROWS
         stats = self.maintain_stats
         stats["calls"] += 1
+        rows_before = stats["rows_moved"]
         self.maintain_pending = False
         changed = False
         for cn in self.cnodes:
@@ -524,6 +785,10 @@ class CompiledHandle:
             cn._live_cache = lives
             self.states[key] = (tuple(levels),
                                 torch.full_like(base, sum(lives[1:])))
+        if stats["rows_moved"] > rows_before:
+            self._note_cause("maintain")
+        if changed:
+            self._cap_cause = self._cap_cause or "maintain"
         return changed
 
     def _enforce_ladders(self) -> bool:
@@ -576,8 +841,9 @@ class CompiledHandle:
                 changed = True
         changed |= self._enforce_ladders()
         if changed:
+            self._cap_cause = self._cap_cause or "presize"
             snap = self.snapshot()
-            self._req = None
+            self._clear_req()
             self.restore(snap)  # re-pad states to the new capacities
 
     def grow(self, overflow: CompiledOverflow, headroom: int = 2,
@@ -594,7 +860,8 @@ class CompiledHandle:
             cn.caps[key] = max(cn.caps[key],
                                bucket_cap(int(required * factor)))
         self._enforce_ladders()
-        self._req = None
+        self._clear_req()
+        self._cap_cause = self._cap_cause or "grow"
 
     def snapshot(self) -> Dict[str, Any]:
         """A restorable DEEP copy of the current (validated) states.
@@ -627,6 +894,7 @@ class CompiledHandle:
         a further replay), re-padding states to the current capacities."""
         states = _copy_tree(snap)
         self._snap_levels.clear()
+        self._cap_cause = self._cap_cause or "restore"
         for cn in self.cnodes:
             key = str(cn.node.index)
             if key in states:
@@ -638,7 +906,8 @@ class CompiledHandle:
     # -- checkpointed run -----------------------------------------------------
     def run_ticks(self, t0: int, n: int, validate_every: int = 16,
                   on_validated: Optional[Callable] = None,
-                  block_each: bool = False, project_ratio: float = 1.0,
+                  block_each: bool = False, scan: bool = False,
+                  project_ratio: float = 1.0,
                   snapshot_every: int = 1) -> None:
         """Run ticks [t0, t0+n) under a ``gen_fn`` with a validation every
         ``validate_every`` ticks and snapshot/replay on overflow (exact:
@@ -648,7 +917,9 @@ class CompiledHandle:
         intervals. ``block_each`` runs each interval pipelined
         (:meth:`_run_pipelined`) with per-tick latency samples; without
         it, ticks queue fully asynchronously and the only syncs are the
-        validations."""
+        validations. ``scan`` runs each interval, the replay after an
+        overflow included, as one chunk (:meth:`step_scanned`): one latency
+        sample per chunk."""
         assert self._gen_fn is not None, "run_ticks needs a gen_fn"
         overhead = self.host_overhead_ns
         h0 = time.perf_counter_ns()
@@ -659,7 +930,9 @@ class CompiledHandle:
         reported = t0  # high-water tick already delivered to on_validated
         while t < t0 + n:
             upto = min(t + validate_every, t0 + n)
-            if block_each:
+            if scan:
+                self.step_scanned(t, upto - t, block=block_each)
+            elif block_each:
                 self._run_pipelined(t, upto)
             else:
                 for tt in range(t, upto):
@@ -684,6 +957,7 @@ class CompiledHandle:
                 h0 = time.perf_counter_ns()
                 snap, snap_t = self.snapshot(), t
                 overhead["snapshot"].append(time.perf_counter_ns() - h0)
+                self._note_cause("snapshot")
             if on_validated is not None and t > reported:
                 on_validated(t)
                 reported = t

@@ -254,6 +254,13 @@ class _ArgBlock:
                 return self.launch(fn, *argv)
         table = None
         if not self.by_value:
+            if torch.cuda.is_current_stream_capturing():
+                # a captured copy would read the host buffer at every
+                # replay, long after this block is gone
+                raise RuntimeError(
+                    f"{self.what}: {self.n_slots} argument slots (more than "
+                    f"{ARGS_MAX}) go through a device table uploaded per "
+                    "launch, which a CUDA graph cannot capture")
             table = self.table()
             self.keep.append(table)
         rc = fn(ctypes.addressof(self.slots), self.n_slots,

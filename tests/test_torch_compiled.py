@@ -6,6 +6,9 @@ through ``step(feeds=...)`` that engages the aggregate's slow path; a warm
 start from host-engine state; a deep ladder whose drains cascade; the
 Z-set algebra nodes in feeds mode; and the consolidation placement pass
 against the reference's.
+The scanned mode (``run_ticks(scan=True)``) against the reference's
+scanned run and its host engine, and against the port's eager run state
+for state; ``apply`` compiled against the reference's.
 The pattern is tests/test_compiled.py's. Everything runs on the CPU, on
 the kernels' plain versions."""
 
@@ -75,7 +78,7 @@ def _gen_fn(handles):
 
 
 def _compiled_run(query, ticks, validate_every=1, t0=0, handle=None,
-                  trace_levels=cnodes.TRACE_LEVELS):
+                  trace_levels=cnodes.TRACE_LEVELS, scan=False):
     if handle is None:
         handle = TRuntime.init_circuit(1, _port_build(query), device="cpu")
     h, (handles, out) = handle
@@ -88,8 +91,32 @@ def _compiled_run(query, ticks, validate_every=1, t0=0, handle=None,
         outs[next_tick - 1] = b.to_dict() if b is not None else {}
 
     ch.run_ticks(t0, ticks, validate_every=validate_every,
-                 on_validated=capture)
+                 on_validated=capture, scan=scan)
     return [outs.get(t, {}) for t in range(t0, t0 + ticks)], ch
+
+
+def _ref_scan_run(query, ticks, validate_every):
+    """The reference's compiled engine, each interval one scanned
+    dispatch: {last tick of each interval: its output}."""
+    from dbsp_tpu.compiled import compile_circuit as rcompile_circuit
+    from dbsp_tpu.nexmark import device_gen
+
+    h, ((hp, ha, hb), out) = Runtime.init_circuit(1, _ref_build(query))
+
+    def gen_fn(tick):
+        p, a, b = device_gen.generate_tick(CFG, tick * EPT, EPT)
+        return {hp: p, ha: a, hb: b}
+
+    ch = rcompile_circuit(h, gen_fn=gen_fn)
+    outs = {}
+
+    def capture(next_tick):
+        b = ch.output(out)
+        outs[next_tick - 1] = b.to_dict() if b is not None else {}
+
+    ch.run_ticks(0, ticks, validate_every=validate_every,
+                 on_validated=capture, scan=True)
+    return outs, ch
 
 
 @pytest.fixture
@@ -183,6 +210,123 @@ def test_compiled_deep_ladder_matches_reference_host(monkeypatch, budget):
     assert ch.overflow_replays > 0
     if budget is not None:
         assert ch.maintain_stats["partial_drains"] > 0
+
+
+@pytest.mark.parametrize("query,caps", [("q4", (64, 256)), ("q8", (8, 8))])
+def test_compiled_scan_matches_reference_scan_and_host(monkeypatch, query,
+                                                       caps):
+    """``run_ticks(scan=True)`` with seed capacities small enough that an
+    interval overflows: the chunk grows, restores its snapshot and runs
+    again as one chunk. Each interval's last-tick output equals the
+    reference's scanned run and its host engine."""
+    from dbsp_tpu.compiled import cnodes as rcnodes
+
+    for mod in (cnodes, rcnodes):
+        monkeypatch.setattr(mod, "LEVEL0_CAP", caps[0])
+        monkeypatch.setattr(mod.CTrace, "DEFAULT_CAP", caps[1])
+    ticks, every = 4, 2
+    comp, ch = _compiled_run(query, ticks, validate_every=every, scan=True)
+    ref, _ = _ref_scan_run(query, ticks, every)
+    host = _host_run(query, ticks)
+    for t in (1, 3):
+        assert comp[t] == ref[t] == host[t], t
+    assert sum(len(host[t]) for t in (1, 3)) > 5
+    assert ch.overflow_replays > 0, "no grow + restore + replay happened"
+    # one latency sample a chunk, the replayed one included
+    assert len(ch.step_times_ns) == ticks // every + ch.overflow_replays
+    assert ch._tick_host == ticks and int(ch._tick_dev) == ticks
+
+
+def test_compiled_scan_equals_eager_state_for_state(small_caps):
+    """The scanned and the eager run of q4 end in equal states (every
+    leaf and every batch's run metadata), requirements and tick cursor;
+    the scanned run takes one latency sample a chunk."""
+    from dbsp_tpu_torch.compiled.compiler import _layout, _leaves
+
+    runs = {}
+    for scan in (False, True):
+        outs, ch = _compiled_run("q4", 6, validate_every=3, scan=scan)
+        runs[scan] = (outs, ch)
+    (eo, e), (so, s) = runs[False], runs[True]
+    assert eo[2] == so[2] and eo[5] == so[5]
+    assert _layout(e.states) == _layout(s.states)
+    assert all(torch.equal(a, b)
+               for a, b in zip(_leaves(e.states), _leaves(s.states)))
+    assert e.last_req == s.last_req
+    assert e.overflow_replays == s.overflow_replays > 0
+    assert int(e._tick_dev) == int(s._tick_dev) == 6
+    assert len(s.step_times_ns) == 2 + s.overflow_replays
+    assert len(e.step_times_ns) == 6 + 3 * e.overflow_replays
+    assert ("snapshot" in {c for _, c in s.tick_causes})
+
+
+def test_step_scanned_needs_a_gen_fn():
+    from dbsp_tpu_torch.operators import add_input_zset
+
+    def build(c):
+        s, h = add_input_zset(c, [torch.int64], [])
+        return h, s.output()
+
+    h, _ = TRuntime.init_circuit(1, build, device="cpu")
+    ch = compile_circuit(h)
+    with pytest.raises(AssertionError, match="gen_fn"):
+        ch.step_scanned(0, 2)
+
+
+def _apply_circuit(add_input, i64):
+    """``apply`` on a batch stream: a negation whose rows then feed a
+    distinct, and the stream merged with itself, read at the sink."""
+    def build(c):
+        s, h = add_input(c, (i64,), (i64,))
+        neg = s.apply(lambda b: b.neg(), name="negate")
+        neg.schema = s.schema  # apply keeps the batch schema
+        o1 = neg.distinct().output()
+        o2 = s.apply(lambda b: b.merge_with(b), name="twice").output()
+        return h, (o1, o2)
+    return build
+
+
+def test_compiled_apply_matches_reference():
+    """``CApply`` (its plain-value branch): the compiled port equals the
+    reference's compiled engine and its host engine, tick for tick, with
+    retractions."""
+    from dbsp_tpu.compiled import compile_circuit as rcompile_circuit
+    from dbsp_tpu.operators import add_input_zset
+    from dbsp_tpu.zset.batch import Batch
+    from dbsp_tpu_torch.operators import add_input_zset as tadd_input_zset
+    from dbsp_tpu_torch.zset.batch import Batch as TBatch
+
+    rh, (rin, rout) = Runtime.init_circuit(
+        1, _apply_circuit(add_input_zset, jnp.int64))
+    ch_ref_h, (cin, cout) = Runtime.init_circuit(
+        1, _apply_circuit(add_input_zset, jnp.int64))
+    ref_ch = rcompile_circuit(ch_ref_h)
+    th, (tin, tout) = TRuntime.init_circuit(
+        1, _apply_circuit(tadd_input_zset, torch.int64), device="cpu")
+    ch = compile_circuit(th)
+    assert sum(type(cn).__name__ == "CApply" for cn in ch.cnodes) == 2
+    rng = np.random.default_rng(7)
+    seen = 0
+    for tick in range(4):
+        n = int(rng.integers(3, 10))
+        k = rng.integers(0, 6, n).astype(np.int64)
+        v = rng.integers(0, 3, n).astype(np.int64)
+        w = rng.choice(np.array([-1, 1, 2], np.int64), n)
+        rin.push_batch(Batch.from_columns([k], [v], w, cap=16))
+        rh.step()
+        ref_ch.step(tick, feeds={cin: Batch.from_columns([k], [v], w,
+                                                          cap=16)})
+        ref_ch.validate()
+        ch.step(tick, feeds={tin: TBatch.from_columns([k], [v], w,
+                                                       device="cpu", cap=16)})
+        ch.validate()
+        for r, c, o in zip(rout, cout, tout):
+            want = r.to_dict()
+            rb, got = ref_ch.output(c), ch.output(o)
+            assert (rb.to_dict() if rb is not None else {}) == want, tick
+            assert (got.to_dict() if got is not None else {}) == want, tick
+            seen += len(want)
+    assert seen > 15
 
 
 def _retraction_circuit(add_input, ops, i64):
@@ -455,12 +599,49 @@ def test_placement_pass_matches_reference():
 
 
 def test_unported_operator_raises():
+    """``apply2`` has a compiled node in neither engine."""
     from dbsp_tpu_torch.operators import add_input_zset
 
     def build(c):
         s, h = add_input_zset(c, [torch.int64], [])
-        return h, s.apply(lambda b: b).output()
+        return h, s.apply2(s, lambda a, b: a).output()
 
     h, _ = TRuntime.init_circuit(1, build, device="cpu")
     with pytest.raises(NotImplementedError, match="no compiled equivalent"):
         compile_circuit(h)
+
+
+def test_scan_graph_buffers_keep_snapshot_identity_honest():
+    """The scanned mode's buffer bookkeeping (``_ScanGraph``, without a
+    graph): a leaf the handle's state no longer holds is copied into its
+    buffer, and a passed-through batch whose buffers a copy changed comes
+    back as a new object, so that ``snapshot``, which reuses the copy of a
+    level whose batch is the same object, never restores stale rows."""
+    from dbsp_tpu_torch.compiled.compiler import _ScanGraph, _leaves
+    from dbsp_tpu_torch.zset.batch import Batch as TBatch
+
+    def batch(vals):
+        return TBatch.from_columns([np.array(vals, np.int64)], [],
+                                   np.ones(len(vals), np.int64),
+                                   device="cpu", cap=4)
+
+    deep, l0 = batch([1, 2]), batch([3])
+    base = torch.tensor(2)
+    bufs = {"0": ((l0, deep), base)}
+    written = batch([3, 4])  # what the captured ticks make of level 0
+    g = _ScanGraph(None, None, bufs, {"0": ((written, deep), base)}, {},
+                   None)
+    st = g.state()
+    (w0, d0), b0 = st["0"]
+    assert w0 is not l0 and w0.weights is l0.weights  # a written leaf
+    assert d0 is deep and b0 is base  # passed through
+    assert g.copy_in(st, bufs) == 0
+    assert g.state()["0"][0][1] is d0  # unchanged: the same object
+    # maintain replaces the deep level: its rows are copied in, and the
+    # level comes back over the same buffers as a new object
+    drained = batch([1, 2, 5])
+    moved = g.copy_in({"0": ((w0, drained), b0)}, bufs)
+    assert moved == sum(t.numel() * 8 for t in _leaves(drained))
+    d1 = g.state()["0"][0][1]
+    assert d1 is not d0 and d1.weights is deep.weights
+    assert d1.to_dict() == drained.to_dict()

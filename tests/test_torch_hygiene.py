@@ -51,6 +51,7 @@ def test_importing_the_port_loads_no_jax():
         "import dbsp_tpu_torch.nexmark, dbsp_tpu_torch.operators\n"
         "import dbsp_tpu_torch.zset.cuda_kernels, dbsp_tpu_torch.zset.cursor\n"
         "import dbsp_tpu_torch.compiled, dbsp_tpu_torch.nexmark.device_gen\n"
+        "import dbsp_tpu_torch.compiled.driver\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
