@@ -49,16 +49,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
              usual 100M made for the run's time limit); then q0, q1, q2,
              q13, q14, q17, q20, q21 and q22 the same way at a smaller
              depth, 2 warm ticks then 6 measured, and q12 at 4 warm and 8
-             measured (across the end of its first 10-tick window). Each
+             measured (across the end of its first 10-tick window); then
+             the per-key top-K queries q9 (winning bids: a join, an
+             in-window filter, a top-1), q6 (q9's winners, a per-seller
+             top-10 by expiry, an average), q18 (top-1 per bidder) and
+             q19 (top-10 per auction), and q16 (four Counts, eight
+             distinct + Counts, a 12-column sum), each at 2 warm and 6
+             measured ticks. Each
              query's launch counts are set to 0 just before its run and
              read just after it (and per measured tick), the kernels its
              path must launch are checked (q0, q1, q2, q14, q21 and q22
              are maps and filters that launch none of the port's
-             kernels; distinct's lookup: one lex-probe launch per
-             measured tick), and the accumulated output is held against
+             kernels; each distinct's lookup: one lex-probe launch per
+             measured tick, q16 eight), the largest ladder gather of a
+             top-K query is printed with its argument slots, and the
+             accumulated output is held against
              a numpy oracle of the query over all events (q12's
              simulates its 10-tick windows, q13's joins the 16-row side
-             table);
+             table; the top-K oracles sort each group once with
+             np.lexsort);
 4b. compiled — Nexmark q4, q3 and q8 on the compiled engine, events
              generated on the card (device_gen), 100,000 events per tick,
              the reference bench's protocol: 4 warm ticks validated every
@@ -66,7 +75,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
              validated every 8, pipelined; then 8 more ticks under the
              profiler for the card's busy share; q17 (the general Min and
              Max in agg_ladder, joins over aggregate outputs) the same way
-             at 3 warm and 8 measured ticks, 4 profiled. Launch counts are
+             at 3 warm and 8 measured ticks, 4 profiled, and q9 and q6
+             (the compiled top-K, CTopK, whose gathers launch the ladder
+             consumer) at 4 warm and 8 measured, 4 profiled. Launch counts are
              set to 0 just before each query's run and read just after it.
              Every tick's output equals the port's host engine on the card
              for the same events, and the integrated output equals the
@@ -84,16 +95,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
              stream_distinct and distinct, compiled on the card, pushed
              20,000 random rows per input per tick for 5 ticks (grow,
              restore and replay on overflow): every tick equal to the same
-             circuit on the host engine on the card;
+             circuit on the host engine on the card; then a feeds-mode
+             circuit of two user-defined Folds (a sum of squares and a
+             max, by k % 1000), 20,000 random rows a tick for 5 ticks with
+             retractions: compiled (the aggregate's stitched route, whose
+             gathers launch the ladder consumer; the fused aggregate
+             kernel must not launch) equal every tick to the host engine
+             on the card;
 4d. scanned — in a process of its own (profiling graph replays left
              later profiler sessions of the process without their first
-             device events): compiled q3, q4, q8 and q17 as in 4b, each
+             device events): compiled q3, q4, q8, q17 and q9 as in 4b, each
              run twice from the same warm-up: eagerly, then in the scanned mode (each
              validation interval of 8 ticks one replay of a CUDA graph,
-             captured on first use), then 4 more intervals, each under
-             the profiler; the first that both runs' profiles can read
-             (their sentinels kept, no capture inside) is the profiled
-             interval of both. At every interval's end the
+             captured on first use), then 4 more intervals, the eager
+             run's each under the profiler, the scanned run's under it
+             until one is readable in both; the first that both runs'
+             profiles can read (their sentinels kept, no capture inside)
+             is the profiled interval of both. At every interval's end the
              scanned run's state (every leaf, bit for bit, and its layout)
              and last-tick output equal the eager run's at the same tick
              (copied to the host); exactly one graph replay an interval; 0
@@ -224,18 +242,34 @@ QUERIES = {
     "q13": ("join_ladder", "rank_merge"),
     "q17": ("join_ladder", "gather_ladder", "segment_reduce", "rank_merge"),
     "q20": ("join_ladder", "rank_merge"),
+    # the per-key top-K (its gathers), q9's and q6's join, q16's eight
+    # distincts; q6's and q16's Average and Counts are linear (an
+    # accumulator gather, no segment reduce)
+    "q9": ("join_ladder", "gather_ladder", "rank_merge"),
+    "q6": ("join_ladder", "gather_ladder", "rank_merge"),
+    "q16": ("lex_probe_ladder", "gather_ladder", "rank_merge"),
+    "q18": ("gather_ladder", "rank_merge"),
+    "q19": ("gather_ladder", "rank_merge"),
 }
 # (warm, measured) ticks of a host query, where not WARM_TICKS, TICKS
 HOST_DEPTH = {q: (2, 6) for q in ("q0", "q1", "q2", "q13", "q14", "q17",
-                                  "q20", "q21", "q22")}
+                                  "q20", "q21", "q22", "q9", "q6", "q16",
+                                  "q18", "q19")}
 HOST_DEPTH["q12"] = (4, 8)  # 12 ticks: across a 10-tick window's end
+# lex-probe launches a measured tick: one per distinct (its old-weights
+# lookup probes both sides in one launch)
+PROBES_PER_TICK = {"q8": 1, "q15": 1, "q16": 8}
 # the compiled engine's paths, driven after the host engine's
 COMPILED = {
     "q4": ("join_ladder", "agg_ladder", "gather_ladder", "rank_merge"),
     "q3": ("join_ladder", "rank_merge"),
     "q8": ("lex_probe_ladder", "join_ladder", "rank_merge"),
     "q17": ("agg_ladder", "join_ladder", "gather_ladder", "rank_merge"),
+    "q9": ("join_ladder", "gather_ladder", "rank_merge"),
+    "q6": ("join_ladder", "gather_ladder", "rank_merge"),
 }
+# the compiled paths phase 4d runs eagerly and scanned
+SCANNED = ("q3", "q4", "q8", "q17", "q9")
 # the device kernels (profile_query.PORT_KERNELS) that each wrapper on a
 # compiled path launches: the profiler sees these, and join_ladder and
 # gather_ladder launch the same two
@@ -252,8 +286,9 @@ C_WARM, C_TICKS, C_VALIDATE, C_PROFILE = 4, 24, 8, 8
 SCAN_PROFILE_INTERVALS = 4
 # (warm, measured, profiled) ticks of a compiled query, where not C_WARM,
 # C_TICKS, C_PROFILE
-COMPILED_DEPTH = {"q17": (3, 8, 4)}
+COMPILED_DEPTH = {"q17": (3, 8, 4), "q9": (4, 8, 4), "q6": (4, 8, 4)}
 ALGEBRA_TICKS, ALGEBRA_ROWS = 5, 20_000
+FOLD_TICKS, FOLD_ROWS = 5, 20_000
 # torch's sync debug mode warns at each host sync ("called a synchronizing
 # CUDA operation"); the first time it is switched on it also warns that it
 # "is a prototype feature and does not yet detect all synchronizing
@@ -1417,11 +1452,104 @@ def q22_oracle(cols) -> dict:
     return count_rows(auction, bidder, price, d[:, 0], d[:, 1], d[:, 2])
 
 
+def last_of_groups(group, k: int):
+    """For rows sorted by ``group`` (and within a group ascending): the
+    mask of each group's last ``k`` rows."""
+    n = len(group)
+    if not n:
+        return np.zeros(0, bool)
+    starts = np.r_[0, np.flatnonzero(group[1:] != group[:-1]) + 1]
+    ends = np.r_[starts[1:], n]
+    end_of_row = np.repeat(ends, ends - starts)
+    return end_of_row - np.arange(n) <= k
+
+
+def winning_bids(cols):
+    """The winning bid of every auction over all events, as q9 defines
+    it: among the bids inside [date_time, expires] of their auction the
+    largest (price, -date_time, bidder). Returns the columns (auction,
+    price, date_time, bidder, seller, expires), one row per auction."""
+    a = cols["auctions"]
+    auction, bidder, price, _, ts = bid_cols(cols)
+    pos = np.clip(np.searchsorted(a["id"], auction), 0, len(a["id"]) - 1)
+    ok = (a["id"][pos] == auction) & (a["date_time"][pos] <= ts) \
+        & (ts <= a["expires"][pos])
+    auction, bidder, price, ts, pos = (c[ok] for c in (auction, bidder,
+                                                       price, ts, pos))
+    order = np.lexsort((bidder, -ts, price, auction))
+    win = order[last_of_groups(auction[order], 1)]
+    return (auction[win], price[win], ts[win], bidder[win],
+            a["seller"][pos[win]], a["expires"][pos[win]])
+
+
+def q9_oracle(cols) -> dict:
+    """(auction, price, date_time, bidder) of each auction's winning
+    bid."""
+    auction, price, ts, bidder, _, _ = winning_bids(cols)
+    return count_rows(auction, price, ts, bidder)
+
+
+def q6_oracle(cols) -> dict:
+    """(seller, truncated average price) over each seller's 10 winning
+    bids of the latest (expires, auction)."""
+    auction, price, _, _, seller, expires = winning_bids(cols)
+    order = np.lexsort((price, auction, expires, seller))
+    keep = order[last_of_groups(seller[order], 10)]
+    sellers, inv = np.unique(seller[keep], return_inverse=True)
+    inv = inv.reshape(-1)
+    total = np.zeros(len(sellers), np.int64)
+    np.add.at(total, inv, price[keep])
+    n = np.bincount(inv, minlength=len(sellers))
+    avg = np.where(total >= 0, total // n, -((-total) // n))
+    return {(s, v): 1 for s, v in zip(sellers.tolist(), avg.tolist())}
+
+
+def q18_oracle(cols) -> dict:
+    """(bidder, date_time, auction, price) of each bidder's largest
+    (date_time, auction, price) bid."""
+    auction, bidder, price, _, ts = bid_cols(cols)
+    order = np.lexsort((price, auction, ts, bidder))
+    last = order[last_of_groups(bidder[order], 1)]
+    return count_rows(bidder[last], ts[last], auction[last], price[last])
+
+
+def q19_oracle(cols) -> dict:
+    """(auction, price, date_time, bidder) of each auction's 10 largest
+    distinct (price, date_time, bidder) bids."""
+    auction, bidder, price, _, ts = bid_cols(cols)
+    rows = np.unique(np.stack([auction, price, ts, bidder], 1), axis=0)
+    rows = rows[last_of_groups(rows[:, 0], 10)]
+    return {tuple(r): 1 for r in rows.tolist()}
+
+
+def q16_oracle(cols) -> dict:
+    """(channel, day) -> bids, distinct bidders and distinct auctions, in
+    all and per price rank (< Q16_RANK1, < Q16_RANK2, the rest)."""
+    from dbsp_tpu_torch.nexmark.queries import DAY_MS, Q16_RANK1, Q16_RANK2
+
+    auction, bidder, price, channel, ts = bid_cols(cols)
+    rank = np.where(price < Q16_RANK1, 1, np.where(price < Q16_RANK2, 2, 3))
+    key = np.stack([channel.astype(np.int64), ts // DAY_MS], 1)
+    keys, kid = np.unique(key, axis=0, return_inverse=True)
+    kid = kid.reshape(-1)
+    stats = np.zeros((len(keys), 12), np.int64)
+    for base, col in ((0, None), (4, bidder), (8, auction)):
+        for r in range(4):
+            sel = np.ones(len(kid), bool) if r == 0 else rank == r
+            ids = kid[sel]
+            if col is not None:  # distinct (key, column) pairs
+                ids = np.unique(np.stack([ids, col[sel]], 1), axis=0)[:, 0]
+            stats[:, base + r] = np.bincount(ids, minlength=len(keys))
+    return {(*k, *s): 1 for k, s in zip(keys.tolist(), stats.tolist())}
+
+
 ORACLES = {"q4": q4_oracle, "q3": q3_oracle, "q8": q8_oracle,
            "q15": q15_oracle, "q0": q0_oracle, "q1": q1_oracle,
            "q2": q2_oracle, "q12": q12_oracle, "q13": q13_oracle,
            "q14": q14_oracle, "q17": q17_oracle, "q20": q20_oracle,
-           "q21": q21_oracle, "q22": q22_oracle}
+           "q21": q21_oracle, "q22": q22_oracle, "q6": q6_oracle,
+           "q9": q9_oracle, "q16": q16_oracle, "q18": q18_oracle,
+           "q19": q19_oracle}
 
 
 def build_query(name: str, device=None):
@@ -1440,20 +1568,21 @@ def build_query(name: str, device=None):
 class Recorder:
     """Wraps a kernel entry point to keep the arguments of its largest
     call on the main paths (for timing at the shapes the queries give
-    it), and which query made it: ``best``, by ``size_fn``; and with
-    ``alt_fn``, ``alt``, the largest call by that measure."""
+    it), and which query made it: ``best``, by the first of
+    ``size_fns``; ``alt``, by the second (if any); ``kept[i]``, by the
+    i-th, as (size, args, kwargs, query)."""
 
     query = None  # the query being driven
     paused = 0  # > 0: record nothing (a chain's own kernels, a check)
 
-    def __init__(self, module, name: str, size_fn, alt_fn=None):
+    def __init__(self, module, name: str, *size_fns):
         self.module, self.name = module, name
-        self.size_fns = (size_fn,) if alt_fn is None else (size_fn, alt_fn)
+        self.size_fns = size_fns
         self.orig = getattr(module, name)
         self.kept = [(None, None, None, None)] * len(self.size_fns)
 
     best = property(lambda self: self.kept[0])
-    alt = property(lambda self: self.kept[-1])
+    alt = property(lambda self: self.kept[min(1, len(self.kept) - 1)])
 
     def __call__(self, *args, **kw):
         if Recorder.paused:
@@ -1485,6 +1614,15 @@ def _ladder_queries(*args, **kw):
     return args[1].shape[0], _ladder_size(*args)
 
 
+def _ladder_slots(qkeys, qlive, levels, *a, **kw):
+    """The argument slots of a ladder-consumer call (above ARGS_MAX its
+    table comes from a host buffer, which a CUDA graph cannot capture)."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    return ck_mod.load_library("ladder_consumer").ladder_slots(
+        len(levels), len(qkeys), len(levels[0].vals))
+
+
 def _probe_size(tables, query_cols, *a, **kw):
     return sum(t[0].shape[0] for t in tables) + query_cols[0].shape[0]
 
@@ -1495,7 +1633,8 @@ def recorders():
     return [
         Recorder(ck_mod, "lex_probe_ladder_both", _probe_size),
         Recorder(ck_mod, "join_ladder", _ladder_size, _ladder_queries),
-        Recorder(ck_mod, "gather_ladder", _ladder_size, _ladder_queries),
+        Recorder(ck_mod, "gather_ladder", _ladder_size, _ladder_queries,
+                 _ladder_slots),
         Recorder(ck_mod, "segment_reduce",
                  lambda spec, vals, w, *a, **k: w.shape[0]),
         Recorder(ck_mod, "rank_merge_scatter",
@@ -1558,10 +1697,11 @@ def run_query(name: str, all_events: dict):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {name} path")
     if "lex_probe_ladder" in QUERIES[name] and \
-            set(per_tick["lex_probe_ladder"]) != {1}:
-        fail(f"{name}: distinct's old-weights lookup made "
+            set(per_tick["lex_probe_ladder"]) != {PROBES_PER_TICK[name]}:
+        fail(f"{name}: its distincts' old-weights lookups made "
              f"{per_tick['lex_probe_ladder']} probe launches per measured "
-             "tick, not one (both sides in one launch)")
+             f"tick, not {PROBES_PER_TICK[name]} (both sides in one "
+             "launch)")
     if n not in all_events:
         all_events.clear()
         all_events[n] = gen.generate(0, n)
@@ -2035,6 +2175,114 @@ def run_algebra() -> dict:
     return launches, {k: [] for k in launches}
 
 
+def fold_circuit(c):
+    """An int64 input keyed by k % 1000 into two ``Fold``s over the
+    present rows: a sum of squares and a max."""
+    import torch
+
+    from dbsp_tpu_torch.operators import Fold, add_input_zset
+    from dbsp_tpu_torch.zset import kernels
+
+    i64 = torch.int64
+    s, h = add_input_zset(c, (i64,), (i64,))
+    keyed = s.index_by(lambda k, v: (k[0] % 1000,), (i64,),
+                       val_fn=lambda k, v: (v[0],), val_dtypes=(i64,),
+                       name="by1000")
+    sum_sq = Fold(reduce_fn=lambda v, w, seg, n: (kernels.segment_sum(
+        v[0] * v[0] * torch.clamp(w, min=0), seg, n),), name="sum_sq")
+    top = Fold(reduce_fn=lambda v, w, seg, n: (kernels.segment_extreme(
+        torch.where(w > 0, v[0], torch.iinfo(i64).min), seg, n,
+        largest=True),), name="max")
+    return h, (keyed.aggregate(sum_sq).output(),
+               keyed.aggregate(top).output())
+
+
+def run_fold() -> dict:
+    """The fold circuit (``fold_circuit``) compiled on the card, in feeds
+    mode, against the same circuit on the host engine on the card, every
+    tick, with retractions from the second tick on. A ``Fold`` has no
+    reduce spec, so the compiled aggregate takes the stitched route:
+    its gathers must launch the ladder consumer, and the fused
+    aggregate kernel must not launch. The counts are set to 0 after each
+    host step and read after the compiled tick: the compiled side's
+    alone. Returns (launches, launches per tick)."""
+    import torch
+
+    from dbsp_tpu_torch.circuit import Runtime
+    from dbsp_tpu_torch.compiled import CompiledOverflow, compile_circuit
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    host, (hin, hout) = Runtime.init_circuit(1, fold_circuit)
+    comp, (cin, cout) = Runtime.init_circuit(1, fold_circuit)
+    ch = compile_circuit(comp)
+    rng = np.random.default_rng(17)
+    dev = host.runtime.device
+    live_k = np.zeros(0, np.int64)
+    live_v = np.zeros(0, np.int64)
+    rows = replays = 0
+    per_tick = {k: [] for k in ck_mod.LAUNCHES}
+    Recorder.paused += 1  # random rows: not the Nexmark paths' calls
+    for t in range(FOLD_TICKS):
+        k = rng.integers(0, 30_000, FOLD_ROWS)
+        v = rng.integers(-1_000, 1_000, FOLD_ROWS)
+        w = np.ones(FOLD_ROWS, np.int64)
+        if t:  # retract a tenth of the rows inserted so far
+            gone = rng.choice(len(live_k), len(live_k) // 10, replace=False)
+            keep = np.ones(len(live_k), bool)
+            keep[gone] = False
+            k, v = np.r_[k, live_k[gone]], np.r_[v, live_v[gone]]
+            w = np.r_[w, -np.ones(len(gone), np.int64)]
+            live_k, live_v = live_k[keep], live_v[keep]
+        live_k = np.r_[live_k, k[w > 0]]
+        live_v = np.r_[live_v, v[w > 0]]
+        hin.push_batch(Batch.from_columns([k], [v], w, device=dev))
+        host.step()
+        feed = Batch.from_columns([k], [v], w, device=dev)
+        ck_mod.reset_launches()  # the compiled tick's own counts
+        while True:  # feeds mode: on overflow grow, restore, step again
+            snap = ch.snapshot()
+            ch.step(t, feeds={cin: feed})
+            try:
+                ch.validate()
+                break
+            except CompiledOverflow as e:
+                replays += 1
+                ch.grow(e)
+                ch.restore(snap)
+        ch.maintain()
+        for name, c in ck_mod.LAUNCHES.items():
+            per_tick[name].append(c)
+        for h, o in zip(hout, cout):
+            want = h.to_dict()
+            b = ch.output(o)
+            got = b.to_dict() if b is not None else {}
+            if got != want:
+                fail(f"fold tick {t}: compiled {sorted(got.items())[:5]} "
+                     f"vs host {sorted(want.items())[:5]}")
+            rows += len(want)
+    Recorder.paused -= 1
+    launches = {k: sum(c) for k, c in per_tick.items()}
+    for name in ("gather_ladder", "segment_reduce", "rank_merge"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the compiled fold "
+                 "circuit")
+    if launches["agg_ladder"]:
+        fail("fold: a spec-less aggregate launched the fused aggregate "
+             "kernel instead of taking the stitched route")
+    if not rows:
+        fail("fold: the comparison held no rows")
+    say(json.dumps({"phase": "fold-compiled", "device": "cuda",
+                    "ticks": FOLD_TICKS, "rows_per_tick": FOLD_ROWS,
+                    "overflow_replays": replays, "output_rows": rows,
+                    "host_engine_equal": True, "launches": launches,
+                    "launches_per_tick_with_replays": {
+                        k: sum(c) / len(c) for k, c in per_tick.items()},
+                    "nodes": sorted({type(cn).__name__
+                                     for cn in ch.cnodes})}))
+    return launches, per_tick
+
+
 def state_record(ch, out_idx) -> tuple:
     """A copy on the host of a compiled handle's state and last-tick
     output, to hold another run against (on the host, so that it takes
@@ -2234,25 +2482,38 @@ def run_scanned(name: str) -> None:
             out.update({"tick_p50_ms": pct(lat, 0.5),
                         "tick_p99_ms": pct(lat, 0.99)})
         # SCAN_PROFILE_INTERVALS more intervals, each held to the eager run
-        # too and each profiled. An interval's profile is readable where
-        # the profiler kept its sentinels and, scanned, no capture fell in
-        # it; the runs are compared in the same interval (a maintain that
-        # merges levels launches more kernels in one interval than in the
-        # next).
-        readable = []
+        # too. The eager run profiles each; the scanned run profiles them
+        # until one is readable in both runs (reading a session's events
+        # takes seconds), and runs the rest unprofiled. An interval's
+        # profile is readable where the profiler kept its sentinels and,
+        # scanned, no capture fell in it; the runs are compared in the
+        # same interval (a maintain that merges levels launches more
+        # kernels in one interval than in the next).
+        readable: list = []
+        sessions = 0
         for i in range(SCAN_PROFILE_INTERVALS):
             t_int = m0 + c_ticks + i * C_VALIDATE
+
+            def interval(t=t_int):
+                ch.run_ticks(t, C_VALIDATE, validate_every=C_VALIDATE,
+                             block_each=True, scan=scan, project_ratio=4.0)
+
+            if scan and any(p and e for p, e in
+                            zip(readable, profiles["eager"])):
+                interval()
+                at_chunk_end(t_int + C_VALIDATE)
+                readable.append(None)
+                continue
             caps_before = sum(ch.captures.values())
-            dev, wall_ms, kept = profile_run(
-                lambda t=t_int: ch.run_ticks(
-                    t, C_VALIDATE, validate_every=C_VALIDATE, block_each=True,
-                    scan=scan, project_ratio=4.0))
+            sessions += 1
+            dev, wall_ms, kept = profile_run(interval)
             at_chunk_end(t_int + C_VALIDATE)
             captured_in = sum(ch.captures.values()) - caps_before
             readable.append(profile_summary(dev, wall_ms, C_VALIDATE)
                             if kept and not captured_in else None)
         profiles[mode] = readable
         out["profile_readable"] = [p is not None for p in readable]
+        out["profiler_sessions"] = sessions
         res[mode] = out
         del ch
     both = [i for i in range(SCAN_PROFILE_INTERVALS)
@@ -3176,7 +3437,7 @@ def main() -> int:
         return 0
     if opts.scanned:
         CARD[0] = opts.scanned
-        for name in COMPILED:
+        for name in SCANNED:
             with phase(f"scanned {name}"):
                 run_scanned(name)
         return 0
@@ -3231,6 +3492,9 @@ def main() -> int:
         # 4c. the Z-set algebra nodes, compiled, in feeds mode
         with phase("algebra"):
             runs["algebra-compiled"] = run_algebra()
+        # 4c'. a user-defined Fold, compiled: the aggregate's stitched route
+        with phase("fold"):
+            runs["fold-compiled"] = run_fold()
         # 4d. the scanned mode: each interval one CUDA-graph replay, state
         #     for state equal to the eager run; in a process of its own,
         #     since torch.profiler sessions over graph replays left this
@@ -3244,6 +3508,17 @@ def main() -> int:
         # 4e. the serving driver, fed through the input handles
         with phase("driver"):
             runs["q4-driver"] = run_driver()
+    # the largest ladder gather by argument slots (the top-K queries'
+    # old-output gathers among them) must take its table by value
+    slots, args, _, query = next(
+        r for r in recs if r.name == "gather_ladder").kept[2]
+    say(json.dumps({"largest_gather_by_slots": {
+        "query": query, "levels": len(args[2]), "argument_slots": slots,
+        "args_max": ck_mod.ARGS_MAX}}))
+    if slots > ck_mod.ARGS_MAX:
+        fail(f"{query}'s ladder gather over {len(args[2])} levels takes "
+             f"{slots} argument slots, above {ck_mod.ARGS_MAX}: its table "
+             "would come from a host buffer")
     captured = {r.name: r.best for r in recs}
     most_queries = {r.name: r.alt for r in recs}
     calls = {name: (name, args, kw) for name, (_, args, kw, _) in

@@ -25,8 +25,9 @@ validated intervals in the handle's ``maintain``. Consumers probe every
 level at once with the fused ladder cursors and consolidate once.
 
 OUTPUT traces (an aggregate's previous outputs, a linear aggregate's
-accumulators) are NOT leveled: consolidated, they hold one live row per
-key, so the old-value gather is an exact q_cap expansion.
+accumulators, a top-K's previous rows) are NOT leveled: consolidated,
+they hold one live row per key (k for a top-K), so the old-value gather
+is an exact q_cap (k * q_cap) expansion.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from dbsp_tpu_torch.zset import kernels
+from dbsp_tpu_torch.zset import cuda_kernels, kernels
 from dbsp_tpu_torch.zset.batch import Batch, bucket_cap, concat_batches
 
 # ---------------------------------------------------------------------------
@@ -236,6 +237,17 @@ def join_levels(delta: Batch, levels: Sequence[Batch], nk: int, fn,
     assert levels, "join_levels: trace has no levels"
     out, total = cursor.join_ladder(delta, levels, nk, fn, out_cap)
     return out, total.to(torch.int64)
+
+
+def gather_levels(qkeys, qlive, levels: Sequence[Batch], out_cap: int):
+    """Gather the query keys' rows from ALL trace levels into ONE
+    ``(qrow, vals, w)`` part of capacity ``out_cap`` in one launch of the
+    ladder consumer (on a CUDA tensor). Returns the part and the
+    UNCLAMPED total. With several levels the part may hold cross-level
+    insert/retract rows of one (qrow, vals): reducers net them."""
+    assert levels, "gather_levels: trace has no levels"
+    part, total = cuda_kernels.gather_ladder(qkeys, qlive, levels, out_cap)
+    return part, total.to(torch.int64)
 
 
 def ensure_side_cap(cn: "CNode", key: str, floor: int) -> int:
@@ -484,10 +496,11 @@ class CDistinct(CNode):
 
 
 class CAggregate(CNode):
-    """General incremental aggregate (Count, Sum, Min, Max, Average):
-    gather the touched groups from the input trace view, reduce, diff
-    against the node's own output trace, all in one
-    ``cuda_kernels.agg_ladder`` call.
+    """General incremental aggregate (Count, Sum, Min, Max, Average,
+    Fold): gather the touched groups from the input trace view, reduce,
+    diff against the node's own output trace, all in one
+    ``cursor.agg_ladder`` call (the fused kernel for a spec'd aggregator,
+    the stitched chain for ``Fold``).
 
     Insert-combinable aggregates (Min, Max) take a fast path: a group
     whose delta only inserts combines the delta's own reduction with the
@@ -539,7 +552,7 @@ class CAggregate(CNode):
 
     def eval(self, ctx, state, inputs):
         from dbsp_tpu_torch.operators.aggregate import _diff_outputs_impl
-        from dbsp_tpu_torch.zset import cuda_kernels
+        from dbsp_tpu_torch.zset import cursor
 
         view: CView = inputs[0]
         out_trace, ever_neg = state
@@ -558,7 +571,7 @@ class CAggregate(CNode):
         flag = ever_neg if fast else torch.ones(
             (), dtype=torch.bool, device=self.device)
         (qkeys, qlive, nq, old_vals, old_present, lad_vals, lad_present,
-         d_vals, d_present, gtot) = cuda_kernels.agg_ladder(
+         d_vals, d_present, gtot) = cursor.agg_ladder(
             delta, nk, out_trace, view.post, agg, q_cap,
             self.caps["gather"], fast, flag)
         ctx.require(self, "queries", nq)
@@ -579,6 +592,56 @@ class CAggregate(CNode):
         state2, required = static_append(out_trace, out)
         ctx.require(self, "out_trace", required)
         return (state2, ever_neg), out
+
+
+class CTopK(CNode):
+    """Incremental per-key top-K (``operators/topk.py``): recompute the
+    touched groups' top-K from the input trace view and diff it against
+    the previous output, kept in a static out trace that holds at most k
+    live rows a key, consolidated (not leveled, see the module doc), so
+    the old-output gather is exact at ``k * q_cap``."""
+
+    MONOTONE_CAPS = frozenset({"out_trace", "gather"})
+
+    def __init__(self, node, op):
+        super().__init__(node, op)
+        self.caps["gather"] = 0
+        self.caps["out_trace"] = 0
+
+    def init_state(self):
+        migrated = _migrate_spine(self.op.out_spine)
+        if not self.caps["out_trace"]:
+            live = 0 if migrated is None else int(migrated.live_count())
+            self.caps["out_trace"] = bucket_cap(max(live * 2, 1024))
+        if migrated is not None:
+            return migrated.with_cap(self.caps["out_trace"])
+        return Batch.empty(*self.op.schema, cap=self.caps["out_trace"],
+                           device=self.device)
+
+    def eval(self, ctx, state, inputs):
+        from dbsp_tpu_torch.operators.aggregate import (_gather_level_impl,
+                                                        _unique_keys_impl)
+        from dbsp_tpu_torch.operators.topk import _topk_rows_impl
+
+        view: CView = inputs[0]
+        k, largest = self.op.k, self.op.largest
+        qkeys, qlive = _unique_keys_impl(view.delta, len(self.op.schema[0]))
+        qkeys, qlive = trim_queries(ctx, self, qkeys, qlive)
+        q_cap = qlive.shape[-1]
+        if not self.caps["gather"]:
+            self.caps["gather"] = max(64, 2 * q_cap)
+
+        g, gtot = gather_levels(qkeys, qlive, view.post, self.caps["gather"])
+        ctx.require(self, "gather", gtot)
+        new_part = _topk_rows_impl(g[0], qkeys, g[1], g[2], k, largest, 1,
+                                   q_cap)
+        o = _gather_level_impl(qkeys, qlive, state, k * q_cap)
+        old_part = _topk_rows_impl(o[0], qkeys, o[1], o[2], k, largest, -1,
+                                   q_cap)
+        out = concat_batches([new_part, old_part]).consolidate()
+        state2, required = static_append(state, out)
+        ctx.require(self, "out_trace", required)
+        return state2, out
 
 
 class CLinearAggregate(CNode):

@@ -94,6 +94,7 @@ def _cnode_for(node, trace_levels: int) -> CNode:
                                                      MapOp)
     from dbsp_tpu_torch.operators.io_handles import OutputOperator, ZSetInput
     from dbsp_tpu_torch.operators.join import JoinOp
+    from dbsp_tpu_torch.operators.topk import TopKOp
     from dbsp_tpu_torch.operators.trace_op import TraceOp
 
     op = node.operator
@@ -111,6 +112,8 @@ def _cnode_for(node, trace_levels: int) -> CNode:
         return cnodes.CLinearAggregate(node, op)
     if isinstance(op, DistinctOp):
         return cnodes.CDistinct(node, op)
+    if isinstance(op, TopKOp):
+        return cnodes.CTopK(node, op)
     if isinstance(op, Plus):
         return cnodes.CPlus(node, op)
     if isinstance(op, Minus):

@@ -1,10 +1,11 @@
-"""Nexmark queries as circuit builders — q0-q4, q8, q12-q15, q17 and
-q20-q22 of ``dbsp_tpu/nexmark/queries.py``. A builder takes the three
-relation streams (persons, auctions, bids) and returns the query's output
-stream. Integer division is floor division on int64, as ``jnp``'s ``//``
-is."""
+"""Nexmark queries as circuit builders — q0-q4, q6, q8, q9, q12-q22 of
+``dbsp_tpu/nexmark/queries.py``. A builder takes the three relation
+streams (persons, auctions, bids) and returns the query's output stream.
+Integer division is floor division on int64, as ``jnp``'s ``//`` is."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -12,6 +13,7 @@ from dbsp_tpu_torch.circuit.builder import Stream
 from dbsp_tpu_torch.nexmark import model as M
 from dbsp_tpu_torch.operators.aggregate import Max, Min
 # Count/Average take the linear path (delta segment sums, no input trace)
+from dbsp_tpu_torch.operators.aggregate_linear import LinearAggregator
 from dbsp_tpu_torch.operators.aggregate_linear import LinearAverage as Average
 from dbsp_tpu_torch.operators.aggregate_linear import LinearCount as Count
 
@@ -122,6 +124,61 @@ def q4(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
     return by_category.aggregate(Average(0), name="q4-avg")
 
 
+# ---------------------------------------------------------------------------
+# q6 / q9: winning bids (a join, an in-window filter, a per-auction top-1
+# with a tie-break) and per-seller averages (a top-10 by close time)
+# ---------------------------------------------------------------------------
+
+
+def _winning_bids(auctions: Stream, bids: Stream) -> Stream:
+    """(auction) -> (price, -date_time, bidder, seller, expires) of the
+    winning in-window bid of each auction: the highest price, the earliest
+    of equal prices. The tie-break is the ranking on (price, -date_time):
+    its lexicographic top-1 takes the largest price, then the smallest
+    time."""
+    by_auction = auctions.index_by(
+        lambda k, v: (k[0],), M.AUCTION_KEY,
+        val_fn=lambda k, v: (v[M.A_SELLER], v[M.A_DATE], v[M.A_EXPIRES]),
+        val_dtypes=(I64, I64, I64), name="q9-auctions",
+        preserves_first_key=True)
+    joined = bids.join_index(
+        by_auction,
+        lambda k, bv, av: (
+            (k[0],),
+            (bv[M.B_PRICE], -bv[M.B_DATE], bv[M.B_BIDDER], av[0],
+             bv[M.B_DATE], av[1], av[2])),
+        (I64,), (I64, I64, I64, I64, I64, I64, I64), name="q9-join",
+        preserves_first_key=True)
+    in_window = joined.filter_rows(
+        lambda k, v: (v[4] >= v[5]) & (v[4] <= v[6]), name="q9-window")
+    ranked = in_window.map_rows(
+        lambda k, v: (k, (v[0], v[1], v[2], v[3], v[6])),
+        (I64,), (I64, I64, I64, I64, I64), name="q9-rank")
+    return ranked.topk(1, largest=True, name="q9-top1")
+
+
+def q9(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Winning bid of each auction: (auction, price, ts, bidder)."""
+    return _winning_bids(auctions, bids).map_rows(
+        lambda k, v: (k, (v[0], -v[1], v[2])),
+        (I64,), (I64, I64, I64), name="q9-project",
+        preserves_first_key=True)
+
+
+def q6(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Average winning price of each seller's last 10 closed auctions:
+    winning bids -> per-seller top-10 by expiry -> average. Output:
+    (seller, avg_price)."""
+    winners = _winning_bids(auctions, bids)
+    by_seller = winners.map_rows(
+        lambda k, v: ((v[3],), (v[4], k[0], v[0])),
+        (I64,), (I64, I64, I64), name="q6-by-seller")
+    last10 = by_seller.topk(10, largest=True, name="q6-last10")
+    prices = last10.map_rows(lambda k, v: (k, (v[2],)), (I64,), (I64,),
+                             name="q6-prices")
+    return prices.aggregate(Average(0), name="q6-avg")
+
+
 DAY_MS = 86_400_000
 
 
@@ -135,6 +192,87 @@ def q15(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
                            val_fn=lambda k, v: (k[1],), val_dtypes=(I64,),
                            name="q15-by-day")
     return by_day.aggregate(Count(), name="q15-count")
+
+
+Q16_RANK1 = 10_000
+Q16_RANK2 = 1_000_000
+Q16_NSTATS = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class _Q16Stats(LinearAggregator):
+    """A 12-column linear sum: each input row is a one-hot stat
+    contribution, so the sum per (channel, day) assembles the whole stat
+    row, with 0 for an absent rank (the left join with default 0 that
+    the query's ``count(*) filter (...)`` columns imply)."""
+
+    acc_dtypes = (I64,) * Q16_NSTATS
+    out_dtypes = (I64,) * Q16_NSTATS
+    name = "q16stats"
+
+    def weigh(self, val_cols):
+        return tuple(val_cols[:Q16_NSTATS])
+
+    def finalize(self, acc_cols, count):
+        return acc_cols
+
+
+def q16(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Channel statistics per day, the whole stat set: (channel, day) ->
+    (total_bids, rank1/2/3_bids, total_bidders, rank1/2/3_bidders,
+    total_auctions, rank1/2/3_auctions), where the ranks split on price
+    < 10,000, < 1,000,000 and the rest.
+
+    Shape: one Count per bid rank (4 streams), one distinct + Count per
+    (bidder x rank) and (auction x rank) (8 streams); each stat maps to a
+    one-hot 12-column row, and one 12-column linear sum per (channel,
+    day) assembles the output with 0 for empty ranks."""
+    def rank_of(price):
+        return torch.where(price < Q16_RANK1, 1,
+                           torch.where(price < Q16_RANK2, 2, 3))
+
+    base = bids.map_rows(
+        lambda k, v: ((v[M.B_CHANNEL].to(I64), v[M.B_DATE] // DAY_MS),
+                      (k[0], v[M.B_BIDDER], rank_of(v[M.B_PRICE]))),
+        (I64, I64), (I64, I64, I64),
+        name="q16-base")  # (channel, day) -> (auction, bidder, rank)
+
+    def rank_filter(s, r, name):
+        return s if r == 0 else s.filter_rows(
+            lambda k, v, _r=r: v[2] == _r, name=name)
+
+    stats = []  # (slot, stream of (channel, day) -> count)
+    for r in range(4):  # bid counts: slots 0..3
+        stats.append((r, rank_filter(base, r, f"q16-bids-r{r}")
+                      .aggregate(Count(), name=f"q16-nbids-r{r}")))
+    for col, what in ((1, "bidder"), (0, "auction")):
+        for r in range(4):  # bidders: slots 4..7; auctions: slots 8..11
+            slot = (4 if what == "bidder" else 8) + r
+            uniq = rank_filter(base, r, f"q16-{what}-r{r}-f").map_rows(
+                lambda k, v, _c=col: ((k[0], k[1], v[_c]), ()),
+                (I64, I64, I64), (), name=f"q16-{what}-r{r}-key").distinct()
+            cnt = uniq.index_by(
+                lambda k, v: (k[0], k[1]), (I64, I64),
+                val_fn=lambda k, v: (k[2],), val_dtypes=(I64,),
+                name=f"q16-{what}-r{r}-by").aggregate(
+                    Count(), name=f"q16-n{what}-r{r}")
+            stats.append((slot, cnt))
+
+    # one-hot each stat into the 12-column layout, and sum
+    onehot = []
+    for slot, s in stats:
+        def mk(slot):
+            def f(k, v):
+                z = torch.zeros_like(v[0])
+                return k, tuple(v[0] if i == slot else z
+                                for i in range(Q16_NSTATS))
+            return f
+
+        onehot.append(s.map_rows(mk(slot), (I64, I64), (I64,) * Q16_NSTATS,
+                                 name=f"q16-oh{slot}"))
+    combined = onehot[0].sum_with(onehot[1:])
+    combined.schema = ((I64, I64), (I64,) * Q16_NSTATS)
+    return combined.aggregate(_Q16Stats(), name="q16-stats")
 
 
 Q12_WINDOW_TICKS = 10
@@ -222,6 +360,26 @@ def q17(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
     return j2.join_index(avg, lambda k, a, b: (k, (a[0], a[1], a[2], b[0])),
                          (I64, I64), (I64, I64, I64, I64), name="q17-j3",
                          preserves_first_key=True)
+
+
+def q18(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Last bid of each bidder: (bidder, ts, auction, price)."""
+    by_bidder = bids.index_by(
+        lambda k, v: (v[M.B_BIDDER],), (I64,),
+        val_fn=lambda k, v: (v[M.B_DATE], k[0], v[M.B_PRICE]),
+        val_dtypes=(I64, I64, I64), name="q18-by-bidder")
+    return by_bidder.topk(1, largest=True, name="q18-last")
+
+
+def q19(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Top 10 bids by price per auction (the window-function query),
+    ranked on (price, ts, bidder) lexicographically."""
+    ranked = bids.index_by(
+        lambda k, v: (k[0],), M.BID_KEY,
+        val_fn=lambda k, v: (v[M.B_PRICE], v[M.B_DATE], v[M.B_BIDDER]),
+        val_dtypes=(I64, I64, I64), name="q19-rank",
+        preserves_first_key=True)
+    return ranked.topk(10, largest=True, name="q19-top10")
 
 
 def q20(persons: Stream, auctions: Stream, bids: Stream) -> Stream:

@@ -1,18 +1,19 @@
 """Operator library of the port. Importing this package attaches the
 Stream sugar (map_rows/filter_rows/flat_map_rows/index_by/join_index/
 aggregate/distinct/stream_distinct/plus/minus/neg/sum_with/apply/apply2/
-inspect/stream_fold/output)."""
+inspect/stream_fold/keys_distinct/semijoin/antijoin/topk/output)."""
 
 # importing the modules registers their Stream methods
 from dbsp_tpu_torch.operators import (  # noqa: F401
     aggregate, basic, distinct, filter_map, io_handles, join, semijoin,
-    trace_op)
-from dbsp_tpu_torch.operators.aggregate import (Average, Count, Max, Min,
-                                                Sum)
+    topk, trace_op)
+from dbsp_tpu_torch.operators.aggregate import (Average, Count, Fold, Max,
+                                                Min, Sum)
 from dbsp_tpu_torch.operators.aggregate_linear import (LinearAverage,
                                                        LinearCount)
 from dbsp_tpu_torch.operators.io_handles import (InputHandle, OutputHandle,
                                                  add_input_zset)
 
 __all__ = ["InputHandle", "OutputHandle", "add_input_zset", "Average",
-           "Count", "Max", "Min", "Sum", "LinearAverage", "LinearCount"]
+           "Count", "Fold", "Max", "Min", "Sum", "LinearAverage",
+           "LinearCount"]

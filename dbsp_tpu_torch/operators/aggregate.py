@@ -21,7 +21,7 @@ read of a device value on the host: the compiled engine's nodes
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,10 +39,13 @@ from dbsp_tpu_torch.zset.batch import Batch, bucket_cap
 
 
 class Aggregator:
-    """A segment-reduction spec: ``reduce_spec()`` is a tuple of ``(op,
-    source column)`` pairs over the count/sum/min/max/avg vocabulary. The
-    reduction sees every gathered row, absent ones (net w <= 0) included,
-    and the ops ignore those themselves."""
+    """A segment reduction of the gathered group rows. The built-ins
+    declare it as ``reduce_spec()``, a tuple of ``(op, source column)``
+    pairs over the count/sum/min/max/avg vocabulary, which the segment
+    reduce and the compiled aggregate's fused kernel run; a spec-less
+    aggregator (``Fold``) writes its own :meth:`reduce`. The reduction
+    sees every gathered row, absent ones (net w <= 0) included, and must
+    ignore those itself."""
 
     out_dtypes: Tuple = ()
     name = "agg"
@@ -51,7 +54,14 @@ class Aggregator:
     #: with no re-gather of the group's history (the compiled fast path)
     insert_combinable = False
 
-    def reduce_spec(self) -> Tuple[Tuple[str, int], ...]:
+    def reduce_spec(self) -> Optional[Tuple[Tuple[str, int], ...]]:
+        """``((op, src_col), ...)`` per output, or None for a hand-written
+        reduction, which the fused kernels do not take."""
+        return None
+
+    def reduce(self, val_cols, weights, seg, num_segments: int
+               ) -> Tuple[torch.Tensor, ...]:
+        """The outputs per segment id of a spec-less aggregator."""
         raise NotImplementedError
 
     def combine(self, a_vals, a_present, b_vals, b_present):
@@ -126,6 +136,28 @@ class Max(Aggregator):
 
 
 @dataclasses.dataclass(frozen=True)
+class Fold(Aggregator):
+    """A general user-defined aggregation: ``reduce_fn(val_cols, weights,
+    seg, num_segments) -> out_cols`` is any segment reduction of the
+    gathered group rows, on torch tensors. Rows of net weight <= 0 must
+    be ignored by masking on ``weights > 0``, as the built-ins do. For
+    example a sum of squares::
+
+        Fold(lambda v, w, s, n: (kernels.segment_sum(
+            v[0] ** 2 * torch.clamp(w, min=0), s, n),))
+
+    It has no reduce spec, so the compiled aggregate takes the stitched
+    route for it (``cursor.agg_ladder``)."""
+
+    reduce_fn: Callable = None
+    out_dtypes: Tuple = (torch.int64,)
+    name: str = "fold"
+
+    def reduce(self, val_cols, weights, seg, num_segments):
+        return tuple(self.reduce_fn(val_cols, weights, seg, num_segments))
+
+
+@dataclasses.dataclass(frozen=True)
 class _TupleMax(Aggregator):
     """Internal: recover the (unique) previous output row per key — one
     max op per column over the net-positive rows."""
@@ -168,10 +200,17 @@ def segment_reduce(spec, val_cols, weights: torch.Tensor, seg: torch.Tensor,
 
 def reduce_with_present(agg: Aggregator, val_cols, weights, seg,
                         num_segments: int, seg_reduce=None):
-    """(outputs, presence) in one segment reduction: the aggregator's spec
-    plus a ``present`` op."""
-    res = segment_reduce((*agg.reduce_spec(), ("present", 0)), val_cols,
-                         weights, seg, num_segments, seg_reduce)
+    """(outputs, presence): a spec'd aggregator's spec plus a ``present``
+    op in one segment reduction; a spec-less one's own reduce, then the
+    presence alone."""
+    spec = agg.reduce_spec()
+    if spec is None:
+        outs = agg.reduce(val_cols, weights, seg, num_segments)
+        (present,) = segment_reduce((("present", 0),), val_cols, weights,
+                                    seg, num_segments, seg_reduce)
+        return tuple(outs), present
+    res = segment_reduce((*spec, ("present", 0)), val_cols, weights, seg,
+                         num_segments, seg_reduce)
     return tuple(res[:-1]), res[-1]
 
 

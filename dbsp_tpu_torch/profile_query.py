@@ -2,8 +2,8 @@
 
     python3 -m dbsp_tpu_torch.profile_query [QUERY ...]
 
-QUERY is any builder of ``nexmark/queries.py`` (q0-q4, q8, q12-q15, q17,
-q20-q22).
+QUERY is any builder of ``nexmark/queries.py`` (q0-q4, q6, q8, q9,
+q12-q22).
 
 Runs each named query (default q4) on the host runtime on the card at
 chip_smoke.py's size (100,000 events per tick, 24 ticks, seed 1), then

@@ -873,13 +873,11 @@ def _agg_spec(delta, nk: int, out_trace, levels: Sequence, agg, q_cap: int,
     ``fusable`` conditions (``cursor.agg_ladder``) and the kernel's
     limits. Raises ``ValueError`` with the reason otherwise."""
     what = "agg_ladder"
-    try:
-        spec = tuple(agg.reduce_spec())
-    except NotImplementedError:
-        spec = ()
+    spec = agg.reduce_spec()
     nv = len(delta.vals)
     if not spec:
         raise ValueError(f"{what}: the aggregator has no reduce spec")
+    spec = tuple(spec)
     if not levels:
         raise ValueError(f"{what}: the trace has no levels")
     if not 1 <= nk <= MAX_COLS:
@@ -1041,39 +1039,10 @@ def agg_ladder_plain(delta, nk: int, out_trace, levels: Sequence, agg,
                      q_cap: int, gather_cap: int, fast: bool,
                      flag: torch.Tensor):
     """Plain version of :func:`agg_ladder`, and its oracle: the stitched
-    chain (reference ``cursor._agg_ladder_stitched``) over
-    :func:`gather_ladder_plain` and :func:`segment_reduce_plain`. The
-    run-boundary scan is done once: ``_delta_groups_impl`` feeds both the
-    unique-key compaction and the fast path's segment ids."""
-    from dbsp_tpu_torch.operators import aggregate as A
+    chain (``cursor.agg_ladder_stitched``) over
+    :func:`gather_ladder_plain` and :func:`segment_reduce_plain`."""
+    from dbsp_tpu_torch.zset import cursor
 
-    assert levels, "agg_ladder: trace has no levels"
-    qkeys_full, qlive_full, anylive, seg_full = A._delta_groups_impl(
-        delta, nk)
-    nq = qlive_full.sum()
-    qkeys = tuple(c[:q_cap] for c in qkeys_full)
-    qlive = qlive_full[:q_cap]
-
-    # previous outputs: the out trace holds one live row per present key,
-    # so a q_cap expansion is exact
-    oqrow, ovals, ow, _ = A._gather_level_impl(qkeys, qlive, out_trace,
-                                               q_cap, gather_ladder_plain)
-    old_vals, old_present = A._reduce_groups_impl(
-        (oqrow, ovals, ow), A._TupleMax(len(agg.out_dtypes)), q_cap,
-        net=False, seg_reduce=segment_reduce_plain)
-
-    d_vals = d_present = None  # the general path never reads them
-    if fast:
-        seg = torch.where(anylive, seg_full, q_cap).to(torch.int32)
-        d_vals, d_present = A.reduce_with_present(
-            agg, delta.vals, delta.weights, seg, q_cap + 1,
-            segment_reduce_plain)
-        d_vals = tuple(o[:q_cap] for o in d_vals)
-        d_present = d_present[:q_cap] > 0
-    part, gtot = gather_ladder_plain(qkeys, qlive & flag, levels,
-                                     gather_cap)
-    lad_vals, lad_present = A._reduce_groups_impl(
-        part, agg, q_cap, net=len(levels) > 1,
-        seg_reduce=segment_reduce_plain)
-    return (qkeys, qlive, nq, old_vals, old_present, lad_vals, lad_present,
-            d_vals, d_present, gtot.to(torch.int64))
+    return cursor.agg_ladder_stitched(
+        delta, nk, out_trace, levels, agg, q_cap, gather_cap, fast, flag,
+        gather=gather_ladder_plain, seg_reduce=segment_reduce_plain)

@@ -1,7 +1,8 @@
 """The port's compiled engine (dbsp_tpu_torch/compiled/) against the
 reference's HOST engine on the same events, tick for tick: Nexmark q4,
-q3, q8 and q17 fed by the port's device-side generator, with initial capacities small
-enough that grow + restore + replay happen; a retraction circuit fed
+q3, q8, q17, q9 and q6 fed by the port's device-side generator, with
+initial capacities small enough that grow + restore + replay happen (q9
+and q6 also against the reference's compiled engine); a retraction circuit fed
 through ``step(feeds=...)`` that engages the aggregate's slow path; a warm
 start from host-engine state; a deep ladder whose drains cascade; the
 Z-set algebra nodes in feeds mode; and the consolidation placement pass
@@ -95,9 +96,10 @@ def _compiled_run(query, ticks, validate_every=1, t0=0, handle=None,
     return [outs.get(t, {}) for t in range(t0, t0 + ticks)], ch
 
 
-def _ref_scan_run(query, ticks, validate_every):
-    """The reference's compiled engine, each interval one scanned
-    dispatch: {last tick of each interval: its output}."""
+def _ref_compiled_run(query, ticks, validate_every, scan):
+    """The reference's compiled engine, each tick or (``scan``) each
+    interval one dispatch: {last tick of each validated interval: its
+    output}."""
     from dbsp_tpu.compiled import compile_circuit as rcompile_circuit
     from dbsp_tpu.nexmark import device_gen
 
@@ -115,7 +117,7 @@ def _ref_scan_run(query, ticks, validate_every):
         outs[next_tick - 1] = b.to_dict() if b is not None else {}
 
     ch.run_ticks(0, ticks, validate_every=validate_every,
-                 on_validated=capture, scan=True)
+                 on_validated=capture, scan=scan)
     return outs, ch
 
 
@@ -212,7 +214,8 @@ def test_compiled_deep_ladder_matches_reference_host(monkeypatch, budget):
         assert ch.maintain_stats["partial_drains"] > 0
 
 
-@pytest.mark.parametrize("query,caps", [("q4", (64, 256)), ("q8", (8, 8))])
+@pytest.mark.parametrize("query,caps", [("q4", (64, 256)), ("q8", (8, 8)),
+                                        ("q9", (64, 256))])
 def test_compiled_scan_matches_reference_scan_and_host(monkeypatch, query,
                                                        caps):
     """``run_ticks(scan=True)`` with seed capacities small enough that an
@@ -226,7 +229,7 @@ def test_compiled_scan_matches_reference_scan_and_host(monkeypatch, query,
         monkeypatch.setattr(mod.CTrace, "DEFAULT_CAP", caps[1])
     ticks, every = 4, 2
     comp, ch = _compiled_run(query, ticks, validate_every=every, scan=True)
-    ref, _ = _ref_scan_run(query, ticks, every)
+    ref, _ = _ref_compiled_run(query, ticks, every, scan=True)
     host = _host_run(query, ticks)
     for t in (1, 3):
         assert comp[t] == ref[t] == host[t], t
@@ -450,6 +453,41 @@ def test_compiled_q17_matches_reference_host(small_caps):
     assert not any(bool(ch.states[str(cn.node.index)][1]) for cn in aggs), \
         "q17 only inserts: the fast path's gate must stay off"
     assert ch.deferred_consolidations == 1  # the last join's, to the sink
+
+
+@pytest.mark.parametrize("query", ["q9", "q6"])
+def test_compiled_topk_query_matches_reference_compiled_and_host(query):
+    """q9 = join + filter + per-key top-1 (``CTopK``'s +1 new / -1 old
+    diff against its static out trace); q6 = q9's winners -> per-seller
+    top-10 -> linear average. Every tick equals the reference's compiled
+    engine and its host engine, across grow + restore + replay."""
+    ticks = 4
+    comp, ch = _compiled_run(query, ticks)
+    ref, _ = _ref_compiled_run(query, ticks, 1, scan=False)
+    host = _host_run(query, ticks)
+    assert comp == [ref[t] for t in range(ticks)] == host
+    assert sum(len(t) for t in host) > 50
+    assert ch.overflow_replays > 0, "no grow + restore + replay happened"
+    topks = [cn for cn in ch.cnodes if isinstance(cn, cnodes.CTopK)]
+    assert [cn.op.k for cn in topks] == ([1] if query == "q9" else [1, 10])
+    ch.validate()
+
+
+def test_compiled_topk_warm_start_from_host_state():
+    """q9 warmed up on the host engine, then compiled: ``CTopK`` takes
+    the host operator's output spine as its out trace, and the run goes
+    on equal to the reference."""
+    gen = TNexmarkGenerator(TCFG)
+    h, (handles, out) = TRuntime.init_circuit(1, _port_build("q9"),
+                                              device="cpu")
+    for t in range(2):
+        gen.feed(handles, t * EPT * 50, (t + 1) * EPT * 50)
+        h.step()
+        out.take()
+    comp, ch = _compiled_run("q9", 2, t0=2, handle=(h, (handles, out)))
+    assert comp == _host_run("q9", 4)[2:]
+    (topk,) = [cn for cn in ch.cnodes if isinstance(cn, cnodes.CTopK)]
+    assert topk.op.out_spine.batches, "the host run left no top-K state"
 
 
 def _algebra_circuit(add_input, i64):

@@ -7,7 +7,11 @@ q0, q1, q21 and q22 are maps (q0 and q1 order-preserving, sort-free);
 q2 and q14 filter and map; q12 folds a tick counter and attaches it with
 apply2; q13 joins a generator's side table; q17 joins the general Min
 and Max with the linear Count and Average; q20 joins bids with filtered
-auctions."""
+auctions; q9 ranks the in-window bids of each auction with a per-key
+top-1 on (price, -date_time), q6 feeds q9's winners to a per-seller
+top-10 and a linear average, q18 and q19 are per-key top-1 and top-10
+over the bids, and q16 sums twelve Count streams, eight of them over
+distinct, in one 12-column linear sum."""
 
 import pytest
 
@@ -37,7 +41,8 @@ _SCHEDULE = {"q12": (400, 2 + tqueries.Q12_WINDOW_TICKS)}
 @pytest.mark.parametrize("name,min_rows", [
     ("q3", 5), ("q8", 50), ("q15", 3), ("q0", 8000), ("q1", 8000),
     ("q2", 30), ("q12", 400), ("q13", 8000), ("q14", 1000), ("q17", 1000),
-    ("q20", 1000), ("q21", 8000), ("q22", 8000)])
+    ("q20", 1000), ("q21", 8000), ("q22", 8000), ("q6", 300), ("q9", 600),
+    ("q16", 60), ("q18", 400), ("q19", 5000)])
 def test_query_equals_reference_tick_for_tick(name, min_rows):
     per, ticks = _SCHEDULE.get(name, (3000, 3))
     rh, (rhandles, rout) = _circuit(Runtime, build_inputs,
