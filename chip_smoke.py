@@ -55,7 +55,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
              top-10 by expiry, an average), q18 (top-1 per bidder) and
              q19 (top-10 per auction), and q16 (four Counts, eight
              distinct + Counts, a 12-column sum), each at 2 warm and 6
-             measured ticks. Each
+             measured ticks; then the windowed queries q5 (hot items:
+             hopping windows as a fan-out of 5, a watermark, a window
+             whose GC truncates its trace, a linear Count, a Max and a
+             join) and q7 (the highest bid of the latest completed
+             tumbling window: a watermark, a window, a Max), at 2 warm
+             and 8 measured ticks with event time at 10,000 events/s (a
+             tick spans 10 s, so the windows move every tick and q5's 40
+             s retention truncates from the sixth; q5's GC'd spine must
+             have dropped its earliest window). Each
              query's launch counts are set to 0 just before its run and
              read just after it (and per measured tick), the kernels its
              path must launch are checked (q0, q1, q2, q14, q21 and q22
@@ -67,7 +75,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
              a numpy oracle of the query over all events (q12's
              simulates its 10-tick windows, q13's joins the 16-row side
              table; the top-K oracles sort each group once with
-             np.lexsort);
+             np.lexsort; q7's is the latest completed period's max price
+             by its end, q5's every retained window's most-bid auctions);
 4b. compiled — Nexmark q4, q3 and q8 on the compiled engine, events
              generated on the card (device_gen), 100,000 events per tick,
              the reference bench's protocol: 4 warm ticks validated every
@@ -77,7 +86,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
              Max in agg_ladder, joins over aggregate outputs) the same way
              at 3 warm and 8 measured ticks, 4 profiled, and q9 and q6
              (the compiled top-K, CTopK, whose gathers launch the ladder
-             consumer) at 4 warm and 8 measured, 4 profiled. Launch counts are
+             consumer) at 4 warm and 8 measured, 4 profiled, and q5 and q7
+             (CWatermark, CApply on its validity, CWindow; q5's window GC
+             truncates every level of its trace each tick) the same way,
+             fed at 10,000 events/s of event time; compiled q5's GC'd
+             trace must never slot nor be projected by presize, and its
+             validated "trace" requirement after the measured ticks must
+             stay within 1.6x of its value after the warm-up (it levels
+             off). Launch counts are
              set to 0 just before each query's run and read just after it.
              Every tick's output equals the port's host engine on the card
              for the same events, and the integrated output equals the
@@ -104,7 +120,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
              on the card;
 4d. scanned — in a process of its own (profiling graph replays left
              later profiler sessions of the process without their first
-             device events): compiled q3, q4, q8, q17 and q9 as in 4b, each
+             device events): compiled q3, q4, q8, q17, q9 and q5 as in 4b
+             (q5's window GC writes every level of its trace each tick, so
+             each replay copies them back into the graph's buffers), each
              run twice from the same warm-up: eagerly, then in the scanned mode (each
              validation interval of 8 ticks one replay of a CUDA graph,
              captured on first use), then 4 more intervals, the eager
@@ -125,8 +143,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
              run's: events/s (with and without the capture), chunk times
              and their p50 / p99 (and over the 8 ticks), dispatch ms a
              tick, busy share, device ops and port-kernel launches a tick,
-             captures by cause, peak allocated memory and the bytes copied
-             into the graph's buffers each interval. A capture that fails
+             captures by cause, peak allocated memory, the bytes copied
+             into the graph's buffers before each interval and the bytes
+             a replay copies back into them. A capture that fails
              fails the run;
 4e. driver — compiled q4 behind CompiledCircuitDriver, fed through its
              input handles by the numpy generator at 100,000 events a tick
@@ -137,7 +156,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
              capacities force grows with exact replays;
 5. cross   — for each host query, the first 3 ticks of 10,000 events
              through the port on the CPU (plain versions) and on the card:
-             equal rows per tick;
+             equal rows per tick (q7 at 1,000 events/s of event time, so
+             its window moves every tick; q5 at 250, so its GC truncates
+             in the third);
 6. timing  — each kernel, its plain version and (where one exists) one
              PyTorch library call, on the largest inputs the queries gave
              it: ``ms`` per call by CUDA events (host gaps between
@@ -193,6 +214,14 @@ WARM_TICKS = 4
 TICKS = 20
 EVENTS_PER_TICK = 100_000
 CROSS_TICKS, CROSS_EVENTS = 3, 10_000
+# Event time advances at first_event_rate events/s (the generator's default
+# is 10,000,000: a 100,000-event tick is 10 ms). The windowed queries run
+# at 10,000, the Apache Beam Nexmark suite's default firstEventRate, so that
+# a tick spans 10 s and their windows move and retire; in the cross-check
+# (10,000-event ticks) q7's window moves every 10 s tick and q5's GC
+# truncates from the third 40 s tick.
+GEN_RATE = {"q5": 10_000, "q7": 10_000}
+CROSS_RATE = {"q5": 250, "q7": 1_000}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 # The data sheet gives no integer rate outside the tensor cores. This one
@@ -250,12 +279,19 @@ QUERIES = {
     "q16": ("lex_probe_ladder", "gather_ladder", "rank_merge"),
     "q18": ("gather_ladder", "rank_merge"),
     "q19": ("gather_ladder", "rank_merge"),
+    # the windowed queries: q5's Count (linear: an accumulator gather),
+    # Max and join, q7's Max; the window's slices are searchsorted pairs
+    # and masked gathers, its GC a compaction (no kernel of the port)
+    "q5": ("join_ladder", "gather_ladder", "segment_reduce", "rank_merge"),
+    "q7": ("gather_ladder", "segment_reduce", "rank_merge"),
 }
 # (warm, measured) ticks of a host query, where not WARM_TICKS, TICKS
 HOST_DEPTH = {q: (2, 6) for q in ("q0", "q1", "q2", "q13", "q14", "q17",
                                   "q20", "q21", "q22", "q9", "q6", "q16",
                                   "q18", "q19")}
 HOST_DEPTH["q12"] = (4, 8)  # 12 ticks: across a 10-tick window's end
+# 10 ticks of 10 s: q5's 40 s retention truncates from the sixth
+HOST_DEPTH["q5"] = HOST_DEPTH["q7"] = (2, 8)
 # lex-probe launches a measured tick: one per distinct (its old-weights
 # lookup probes both sides in one launch)
 PROBES_PER_TICK = {"q8": 1, "q15": 1, "q16": 8}
@@ -267,9 +303,13 @@ COMPILED = {
     "q17": ("agg_ladder", "join_ladder", "gather_ladder", "rank_merge"),
     "q9": ("join_ladder", "gather_ladder", "rank_merge"),
     "q6": ("join_ladder", "gather_ladder", "rank_merge"),
+    # the compiled aggregate's fused kernel for both Maxes; q5's linear
+    # Count gathers its accumulator with the ladder consumer
+    "q5": ("join_ladder", "gather_ladder", "agg_ladder", "rank_merge"),
+    "q7": ("agg_ladder", "rank_merge"),
 }
 # the compiled paths phase 4d runs eagerly and scanned
-SCANNED = ("q3", "q4", "q8", "q17", "q9")
+SCANNED = ("q3", "q4", "q8", "q17", "q9", "q5")
 # the device kernels (profile_query.PORT_KERNELS) that each wrapper on a
 # compiled path launches: the profiler sees these, and join_ladder and
 # gather_ladder launch the same two
@@ -286,7 +326,18 @@ C_WARM, C_TICKS, C_VALIDATE, C_PROFILE = 4, 24, 8, 8
 SCAN_PROFILE_INTERVALS = 4
 # (warm, measured, profiled) ticks of a compiled query, where not C_WARM,
 # C_TICKS, C_PROFILE
-COMPILED_DEPTH = {"q17": (3, 8, 4), "q9": (4, 8, 4), "q6": (4, 8, 4)}
+COMPILED_DEPTH = {"q17": (3, 8, 4), "q9": (4, 8, 4), "q6": (4, 8, 4),
+                  "q5": (4, 8, 4), "q7": (4, 8, 4)}
+# trace levels of a compiled query, where not the reference bench's pick
+# for its measured ticks (one level at 8): q5's GC'd trace on two, so that
+# a tick truncates a deep level too, maintain drains into it, and a
+# scanned replay writes it back
+COMPILED_LEVELS = {"q5": 2}
+# the GC'd trace's validated "trace" requirement at the end of compiled
+# q5's measured ticks, against its value after the warm-up (50 s of event
+# time, about the retained span): above this ratio it grows with the run
+# (without the GC it would hold 13 ticks' rows against 5)
+GC_LEVEL_RATIO = 1.6
 ALGEBRA_TICKS, ALGEBRA_ROWS = 5, 20_000
 FOLD_TICKS, FOLD_ROWS = 5, 20_000
 # torch's sync debug mode warns at each host sync ("called a synchronizing
@@ -1543,13 +1594,82 @@ def q16_oracle(cols) -> dict:
     return {(*k, *s): 1 for k, s in zip(keys.tolist(), stats.tolist())}
 
 
+def q5_oracle(cols) -> dict:
+    """(window start, auction) of the auctions with the most bids in each
+    hopping window that the last watermark retains: every bid counts in
+    the five 10 s windows that start at its 2 s hop and the four hops
+    before, and a window is retired once it starts below the largest bid
+    time less Q5_RETAIN_MS."""
+    from dbsp_tpu_torch.nexmark.queries import (Q5_HOP_MS, Q5_RETAIN_MS,
+                                                Q5_WINDOW_MS)
+
+    auction, _, _, _, ts = bid_cols(cols)
+    fan = Q5_WINDOW_MS // Q5_HOP_MS
+    hop = ts // Q5_HOP_MS * Q5_HOP_MS
+    starts = np.concatenate([hop - k * Q5_HOP_MS for k in range(fan)])
+    auctions = np.tile(auction, fan)
+    keep = starts >= int(ts.max()) - Q5_RETAIN_MS
+    pairs, counts = np.unique(np.stack([starts[keep], auctions[keep]], 1),
+                              axis=0, return_counts=True)
+    if not len(pairs):
+        return {}
+    new = np.r_[True, pairs[1:, 0] != pairs[:-1, 0]]
+    most = np.maximum.reduceat(counts, np.flatnonzero(new))
+    win = counts == most[np.cumsum(new) - 1]
+    return {(w, a): 1 for w, a in pairs[win].tolist()}
+
+
+def q5_first_window(cols) -> int:
+    """The earliest window start any bid counts in: a GC'd q5 trace that
+    still holds it dropped nothing."""
+    from dbsp_tpu_torch.nexmark.queries import Q5_HOP_MS, Q5_WINDOW_MS
+
+    ts = bid_cols(cols)[4]
+    return int(ts.min()) // Q5_HOP_MS * Q5_HOP_MS - Q5_WINDOW_MS + Q5_HOP_MS
+
+
+def q7_oracle(cols) -> dict:
+    """(end, max price) of the latest completed 10 s period: the bids in
+    [end - 10 s, end), where end is the largest bid time floored to 10 s
+    (empty if that period has no bid)."""
+    from dbsp_tpu_torch.nexmark.queries import Q7_WINDOW_MS as W
+
+    _, _, price, _, ts = bid_cols(cols)
+    end = int(ts.max()) // W * W
+    inside = (ts >= end - W) & (ts < end)
+    return {(end, int(price[inside].max())): 1} if inside.any() else {}
+
+
 ORACLES = {"q4": q4_oracle, "q3": q3_oracle, "q8": q8_oracle,
            "q15": q15_oracle, "q0": q0_oracle, "q1": q1_oracle,
            "q2": q2_oracle, "q12": q12_oracle, "q13": q13_oracle,
            "q14": q14_oracle, "q17": q17_oracle, "q20": q20_oracle,
            "q21": q21_oracle, "q22": q22_oracle, "q6": q6_oracle,
            "q9": q9_oracle, "q16": q16_oracle, "q18": q18_oracle,
-           "q19": q19_oracle}
+           "q19": q19_oracle, "q5": q5_oracle, "q7": q7_oracle}
+
+
+def gen_config(name: str, rates: dict = GEN_RATE):
+    """The generator's config for query ``name``: seed 1, at its event
+    rate in ``rates`` (else the default rate)."""
+    from dbsp_tpu_torch.nexmark import GeneratorConfig
+
+    rate = rates.get(name)
+    if rate is None:
+        return GeneratorConfig(seed=1)
+    return GeneratorConfig(seed=1, first_event_rate=rate)
+
+
+def gc_spine(handle):
+    """The spine that a window with ``gc=True`` truncates in a host-engine
+    circuit (None if there is none)."""
+    from dbsp_tpu_torch.timeseries import WindowOp
+
+    nodes = handle.circuit.nodes
+    for node in nodes:
+        if isinstance(node.operator, WindowOp) and node.operator.gc:
+            return nodes[node.inputs[0]].operator.spine
+    return None
 
 
 def build_query(name: str, device=None):
@@ -1656,14 +1776,17 @@ def run_query(name: str, all_events: dict):
     measured tick)."""
     import torch
 
-    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+    from dbsp_tpu_torch.nexmark import NexmarkGenerator
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
 
     warm_ticks, ticks = HOST_DEPTH.get(name, (WARM_TICKS, TICKS))
-    gen = NexmarkGenerator(GeneratorConfig(seed=1))
+    cfg = gen_config(name)
+    gen = NexmarkGenerator(cfg)
     handle, (handles, out) = build_query(name)  # device=None: the card
     if handle.runtime.device.type != "cuda":
         fail(f"{name} built on {handle.runtime.device}, not the card")
+    spine = gc_spine(handle)
+    gc_rows: list = []  # the GC'd spine's live rows after each tick
     Recorder.query = name
     acc: dict = {}
     torch.cuda.synchronize()
@@ -1674,6 +1797,8 @@ def run_query(name: str, all_events: dict):
         gen.feed(handles, n, n + EVENTS_PER_TICK)
         handle.step()
         accumulate(acc, out.take().to_dict())
+        if spine is not None:
+            gc_rows.append(sum(int(b.live_count()) for b in spine.batches))
         n += EVENTS_PER_TICK
     handle.step_times_ns.clear()
     per_tick = {k: [] for k in ck_mod.LAUNCHES}
@@ -1685,6 +1810,8 @@ def run_query(name: str, all_events: dict):
         handle.step()
         ta = time.perf_counter()
         accumulate(acc, out.take().to_dict())
+        if spine is not None:
+            gc_rows.append(sum(int(b.live_count()) for b in spine.batches))
         acc_s += time.perf_counter() - ta
         n += EVENTS_PER_TICK
         for k, count in ck_mod.LAUNCHES.items():
@@ -1702,15 +1829,29 @@ def run_query(name: str, all_events: dict):
              f"{per_tick['lex_probe_ladder']} probe launches per measured "
              f"tick, not {PROBES_PER_TICK[name]} (both sides in one "
              "launch)")
-    if n not in all_events:
+    if (cfg, n) not in all_events:
         all_events.clear()
-        all_events[n] = gen.generate(0, n)
-    want = ORACLES[name](all_events[n])
+        all_events[(cfg, n)] = gen.generate(0, n)
+    events = all_events[(cfg, n)]
+    want = ORACLES[name](events)
     if not want:
         fail(f"{name} oracle is empty: the check would be vacuous")
     if acc != want:
         fail(f"{name} accumulated output differs from the oracle: "
              f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
+    gc_report = None
+    if spine is not None:
+        # the GC dropped rows when the earliest window the bids count in
+        # is gone from the spine (bids only insert: nothing else removes)
+        held = torch.cat([b.keys[0][b.weights != 0] for b in spine.batches])
+        first = q5_first_window(events)
+        if not held.numel() or int(held.min()) <= first:
+            fail(f"{name}: its GC'd spine never dropped a row (earliest "
+                 f"window {first} still held)")
+        gc_report = {"live_rows_per_tick": gc_rows,
+                     "earliest_window_held_ms_after_first":
+                     int(held.min()) - first,
+                     "levels": [b.cap for b in spine.batches]}
     lat = sorted(handle.step_times_ns)
     host_metrics[name] = {"events_per_s": ticks * EVENTS_PER_TICK / elapsed,
                           "tick_p50_ms": lat[len(lat) // 2] / 1e6,
@@ -1736,6 +1877,8 @@ def run_query(name: str, all_events: dict):
         "tick_max_ms": lat[-1] / 1e6,
         "spine_device_bytes": spine_bytes,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "first_event_rate": cfg.first_event_rate,
+        "gc_trace": gc_report,
         "launches": launches,
         "launches_per_measured_tick": {k: [min(c), max(c)]
                                        for k, c in per_tick.items()},
@@ -1852,12 +1995,13 @@ def probe_shape(lookups: list, last_call: tuple, busy_ops: float) -> dict:
 def compiled_query(name: str, c_ticks: int):
     """Query ``name`` compiled on the card, fed by device-side generation
     at EVENTS_PER_TICK, with the level count the reference bench picks
-    for ``c_ticks`` measured ticks: (the handle, its output's index)."""
+    for ``c_ticks`` measured ticks (or its ``COMPILED_LEVELS`` entry):
+    (the handle, its output's index)."""
     from dbsp_tpu_torch.compiled import cnodes, compile_circuit
-    from dbsp_tpu_torch.nexmark import GeneratorConfig, device_gen
+    from dbsp_tpu_torch.nexmark import device_gen
 
     ept = EVENTS_PER_TICK // 50
-    cfg = GeneratorConfig(seed=1)
+    cfg = gen_config(name)
     handle, (handles, out) = build_query(name)
     if handle.runtime.device.type != "cuda":
         fail(f"compiled {name} built on {handle.runtime.device}")
@@ -1868,8 +2012,27 @@ def compiled_query(name: str, c_ticks: int):
         return {hp: p, ha: a, hb: b}
 
     ch = compile_circuit(handle, gen_fn=gen_fn,
-                         trace_levels=cnodes.levels_for_run(c_ticks))
+                         trace_levels=COMPILED_LEVELS.get(
+                             name, cnodes.levels_for_run(c_ticks)))
     return ch, ch._op_to_index[id(out._op)]
+
+
+def gc_trace_node(ch):
+    """The compiled trace node that a window with ``gc=True`` truncates
+    (None if there is none)."""
+    from dbsp_tpu_torch.compiled import cnodes
+
+    for cn in ch.cnodes:
+        if isinstance(cn, cnodes.CWindow) and cn.op.gc:
+            return ch.by_index[cn.node.inputs[0]]
+    return None
+
+
+def trace_requirement(ch, trace_cn) -> int:
+    """The last validated "trace" requirement (its live rows) of a
+    compiled trace node."""
+    return max(r for (cn, key), r in zip(ch._checks, ch.last_req)
+               if cn is trace_cn and key == "trace")
 
 
 def warm_compiled(ch, c_warm: int, c_ticks: int) -> None:
@@ -1890,14 +2053,16 @@ def run_compiled(name: str) -> dict:
 
     import torch
 
-    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+    from dbsp_tpu_torch.nexmark import NexmarkGenerator
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
     from dbsp_tpu_torch.zset import cursor
 
     c_warm, c_ticks, c_profile = COMPILED_DEPTH.get(
         name, (C_WARM, C_TICKS, C_PROFILE))
-    cfg = GeneratorConfig(seed=1)
+    cfg = gen_config(name)
     ch, out_idx = compiled_query(name, c_ticks)
+    gc_cn = gc_trace_node(ch)
+    gc_req: list = []  # the GC'd trace's validated "trace" requirement
     outs = {}
     syncs = []
     sync_sites: dict = {}
@@ -1975,6 +2140,8 @@ def run_compiled(name: str) -> dict:
     t0 = time.perf_counter()
     try:
         warm_compiled(ch, c_warm, c_ticks)
+        if gc_cn is not None:
+            gc_req.append(trace_requirement(ch, gc_cn))
         warm_s = time.perf_counter() - t0
         warm_replays = ch.overflow_replays
         ch.reset_timing()
@@ -1986,6 +2153,8 @@ def run_compiled(name: str) -> dict:
                      snapshot_every=max(1, c_ticks // C_VALIDATE // 2))
         ch.block()
         elapsed = time.perf_counter() - t0
+        if gc_cn is not None:
+            gc_req.append(trace_requirement(ch, gc_cn))
     finally:
         counting[0] = False
         cursor.old_weights_ladder = old_weights
@@ -2040,6 +2209,21 @@ def run_compiled(name: str) -> dict:
     want = ORACLES[name](gen.generate(0, n))
     if not want or acc != want:
         fail(f"compiled {name} integrated output differs from the oracle")
+    gc_report = None
+    if gc_cn is not None:
+        # the GC'd trace is bounded by the window's span: its rows level
+        # off after the warm-up instead of growing with the ticks
+        levels, _ = ch.states[str(gc_cn.node.index)]
+        if gc_req[-1] > GC_LEVEL_RATIO * gc_req[0]:
+            fail(f"compiled {name}: the GC'd trace's requirement grew from "
+                 f"{gc_req[0]} after the warm-up to {gc_req[-1]} rows")
+        if gc_cn._slot_cap is not None or gc_cn.MONOTONE_CAPS:
+            fail(f"compiled {name}: the GC'd trace slots or is projected")
+        gc_report = {"trace_requirement_after_warmup": gc_req[0],
+                     "trace_requirement_after_measured": gc_req[-1],
+                     "live_rows_by_level": [int(b.live_count())
+                                            for b in levels],
+                     "level_caps": [b.cap for b in levels]}
     say(json.dumps({
         "phase": f"{name}-compiled", "device": "cuda", "card": CARD[0],
         "events_per_tick": EVENTS_PER_TICK, "warm_ticks": c_warm + 1,
@@ -2074,6 +2258,8 @@ def run_compiled(name: str) -> dict:
         "sync_debug_notices": sync_notices,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "state_bytes": state_bytes(ch.states),
+        "first_event_rate": cfg.first_event_rate,
+        "gc_trace": gc_report,
         "caps": {cn.op.name: dict(cn.caps) for cn in ch.cnodes if cn.caps},
         "launches": launches,
         "launches_per_measured_tick": {k: sum(c) / len(c)
@@ -2476,6 +2662,11 @@ def run_scanned(name: str) -> None:
                 "graph_replays": replays,
                 "host_syncs_around_replays": 0,
                 "bytes_copied_per_interval": list(ch.scan_copy_bytes),
+                # the bytes each replay copies back into the graph's
+                # buffers: every leaf the ticks wrote (level 0s, out
+                # traces, every level of a window-GC'd trace)
+                "graph_writeback_bytes_per_replay": {
+                    n: g.writeback_bytes for n, g in ch._graphs.items()},
             })
         else:
             lat = ch.step_times_ns
@@ -2658,9 +2849,9 @@ def run_driver() -> tuple:
 def cross_check(name: str) -> int:
     """The port on the CPU (plain versions) and on the card, same events:
     equal output rows per tick. Returns the rows compared."""
-    from dbsp_tpu_torch.nexmark import GeneratorConfig, NexmarkGenerator
+    from dbsp_tpu_torch.nexmark import NexmarkGenerator
 
-    gen = NexmarkGenerator(GeneratorConfig(seed=1))
+    gen = NexmarkGenerator(gen_config(name, CROSS_RATE))
     cpu_h, (cpu_in, cpu_out) = build_query(name, device="cpu")
     gpu_h, (gpu_in, gpu_out) = build_query(name)
     rows = 0

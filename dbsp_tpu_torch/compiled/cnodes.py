@@ -24,6 +24,11 @@ level 0 (an O(|delta|) indexed copy, no merge, see
 validated intervals in the handle's ``maintain``. Consumers probe every
 level at once with the fused ladder cursors and consolidate once.
 
+A trace that a window reads is not slotted (the window slices each
+level, one slice per viewed level), and a window with ``gc=True``
+truncates every level of its trace each tick (``ctx.gc_bounds``, applied
+by the handle after the tick's evals).
+
 OUTPUT traces (an aggregate's previous outputs, a linear aggregate's
 accumulators, a top-K's previous rows) are NOT leveled: consolidated,
 they hold one live row per key (k for a top-K), so the old-value gather
@@ -78,11 +83,18 @@ class _Leveled:
     The tick only writes level 0 (a slot append) and hands levels 1..K-1
     through unchanged; draining level k into k+1 happens between
     validated intervals in ``CompiledHandle.maintain()``, so ``base_live``
-    stays exact between maintenance points."""
+    stays exact between maintenance points. A window's GC truncates every
+    level in the tick, and recounts ``base_live`` there."""
 
     TAIL_KEY = "trace"
     _slot_cap: Optional[int] = None
     _append_slotted = False
+    # set by the handle: a trace a window reads takes no slots; a
+    # window-GC'd trace (every level of which a tick truncates) also has
+    # its live counts refetched by maintain, and snapshot reuses none of
+    # its deep levels
+    _no_slots = False
+    _gc_refresh = False
 
     def _init_level_caps(self, levels: int) -> None:
         n = max(1, levels)
@@ -135,8 +147,8 @@ class _Leveled:
         new = list(levels)
         l0 = new[0]
         dcap = delta.cap
-        can_slot = (len(self.level_keys) > 1 and dcap > 0
-                    and l0.cap % dcap == 0)
+        can_slot = (not self._no_slots and len(self.level_keys) > 1
+                    and dcap > 0 and l0.cap % dcap == 0)
         if can_slot and self._slot_cap is None:
             self._slot_cap = dcap
         slotted = can_slot and self._slot_cap == dcap
@@ -201,12 +213,18 @@ class _Leveled:
         """Re-fit the levels to the current capacities (after a grow). A
         slotted level 0 is consolidated first: the grow may have changed
         its producer's delta capacity, and one consolidated run is a valid
-        slot ladder at every slot size."""
+        slot ladder at every slot size. So the slot size is pinned anew
+        by the next append, at the delta capacity the producer now has: a
+        pin kept from a smaller producer would send every later delta
+        down the merge path and still slice level 0 into ``cap(l0) /
+        slot`` views for every consumer to probe (q5's counts, whose
+        delta capacity grows with their query capacity)."""
         levels, base = state
         out = []
         for i, (b, k) in enumerate(zip(levels, self.level_keys)):
             if i == 0 and self._slot_cap is not None:
                 b = b.consolidate().with_cap(self.caps[k]).tagged(None)
+                self._slot_cap = None
             elif i == 0:
                 b = b.with_cap(self.caps[k]).tagged(None)
             else:
@@ -386,11 +404,15 @@ class CSumN(CNode):
 
 class CApply(CNode):
     """Host ``apply``: the Python fn on the tick's value, which must read
-    no device value on the host. The reference's ``CMaybe`` branch (a
-    watermark's validity) comes with the watermark and window nodes."""
+    no device value on the host. A :class:`CMaybe` input keeps its
+    validity: the fn runs on the device value, so its host-side ``None``
+    branch is never taken."""
 
     def eval(self, ctx, state, inputs):
-        return None, self.op.fn(inputs[0])
+        v = inputs[0]
+        if isinstance(v, CMaybe):
+            return None, CMaybe(v.valid, self.op.fn(v.value))
+        return None, self.op.fn(v)
 
 
 class COutput(CNode):
@@ -690,4 +712,132 @@ class CLinearAggregate(CNode):
                                         *old, agg, nk)
         state2, required = static_append(state, sdiff)
         ctx.require(self, "acc_trace", required)
+        return state2, out
+
+
+# ---------------------------------------------------------------------------
+# Time-series nodes (watermark, window)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CMaybe:
+    """A device scalar stream value that may not exist yet (the host
+    engine's ``None`` before the first event, e.g. a watermark's):
+    ``valid`` masks every consumer, so the value computed before the
+    first event is never observed."""
+
+    valid: torch.Tensor
+    value: object
+
+
+# the watermark before the first event; headroom below it for the bounds'
+# arithmetic
+_WM_FLOOR = torch.iinfo(torch.int64).min // 4
+
+
+def truncate_below(batch: Batch, bound: torch.Tensor) -> Batch:
+    """Drop the rows whose first key is below ``bound`` (the compiled
+    ``Spine.truncate_keys_below``): capacity unchanged, live rows packed
+    and sorted. The comparison runs in int64: cast down to an int32 key
+    column, the bound before the first bounds (``_WM_FLOOR``) would wrap
+    and truncate live negative keys."""
+    k0 = batch.keys[0]
+    return batch.compacted((batch.weights != 0)
+                           & (k0.to(torch.int64) >= bound))
+
+
+def _device_int(x, device) -> torch.Tensor:
+    """``x`` as a 0-d int64 device tensor: a device value is cast, a host
+    int is filled on the device (a fill kernel, which a CUDA graph
+    captures; a host-to-device copy it could not)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    return torch.full((), x, dtype=torch.int64, device=device)
+
+
+class CWatermark(CNode):
+    """``watermark_monotonic``: the running max of a live timestamp column
+    minus lateness, as device scalars. The state is (wm, valid) where the
+    host engine holds a Python int or ``None``; a tick with no live row
+    keeps it, with no host read."""
+
+    def init_state(self):
+        return (torch.full((), _WM_FLOOR, dtype=torch.int64,
+                           device=self.device),
+                torch.zeros((), dtype=torch.bool, device=self.device))
+
+    def eval(self, ctx, state, inputs):
+        batch = inputs[0]
+        wm0, valid0 = state
+        if batch.cap == 0:
+            return state, CMaybe(valid0, wm0)
+        ts = self.op.ts_fn(batch.keys, batch.vals).to(torch.int64)
+        live = batch.weights != 0
+        m = torch.where(live, ts, _WM_FLOOR).amax()
+        any_live = live.any()
+        wm1 = torch.where(any_live,
+                          torch.maximum(wm0, m - self.op.lateness), wm0)
+        valid1 = valid0 | any_live
+        return (wm1, valid1), CMaybe(valid1, wm1)
+
+
+class CWindow(CNode):
+    """Moving-bounds window over a compiled trace view: the host
+    operator's three-part delta (new rows in [a1, b1), minus the rows that
+    slid out of [a0, min(a1, b0)), plus those that slid in from
+    [max(b0, a1), b1)), with a slice of each pre-tick level per part at
+    the shared ``slide_out`` / ``slide_in`` capacities. Before the first
+    bounds the output is masked dead instead of returned early. With
+    ``gc=True`` the lower bound goes to ``ctx.gc_bounds``, and the handle
+    truncates the trace below it in the same tick."""
+
+    def __init__(self, node, op):
+        super().__init__(node, op)
+        self.caps["slide_out"] = 0
+        self.caps["slide_in"] = 0
+
+    def init_state(self):
+        # (a0, b0, had_bounds)
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        return (zero, zero.clone(),
+                torch.zeros((), dtype=torch.bool, device=self.device))
+
+    def eval(self, ctx, state, inputs):
+        from dbsp_tpu_torch.timeseries.window import (_filter_window,
+                                                      _slice_range)
+
+        view, bounds = inputs
+        if not isinstance(bounds, CMaybe):
+            bounds = CMaybe(torch.ones((), dtype=torch.bool,
+                                       device=self.device), bounds)
+        a1, b1 = (_device_int(x, self.device) for x in bounds.value)
+        valid1 = bounds.valid
+        a0, b0, had = state
+        # first bounds ever: the previous window is the empty [a1, a1)
+        a0e = torch.where(had, a0, a1)
+        b0e = torch.where(had, b0, a1)
+
+        if not self.caps["slide_out"]:
+            cap = max(64, view.delta.cap)
+            self.caps["slide_out"] = cap
+            self.caps["slide_in"] = cap
+        parts = [_filter_window(view.delta, a1, b1)]
+        for lvl in view.pre:
+            out_b, n_out = _slice_range(lvl, a0e, torch.minimum(a1, b0e),
+                                        self.caps["slide_out"])
+            ctx.require(self, "slide_out", n_out)
+            parts.append(out_b.neg())
+            in_b, n_in = _slice_range(lvl, torch.maximum(b0e, a1), b1,
+                                      self.caps["slide_in"])
+            ctx.require(self, "slide_in", n_in)
+            parts.append(in_b)
+        # everything is dead until bounds exist
+        out = concat_batches(parts).consolidate().masked(valid1)
+
+        if self.op.gc:
+            ctx.gc_bounds[self.node.inputs[0]] = torch.where(valid1, a1,
+                                                             _WM_FLOOR)
+        state2 = (torch.where(valid1, a1, a0), torch.where(valid1, b1, b0),
+                  had | valid1)
         return state2, out

@@ -79,6 +79,9 @@ class _Ctx:
         self.outputs: Dict[int, Batch] = {}
         self.reqs: List[torch.Tensor] = []
         self.req_index: List[Tuple[CNode, str]] = []
+        # trace node index -> lower bound: a window's GC, applied to the
+        # trace's state at the end of the same tick
+        self.gc_bounds: Dict[int, torch.Tensor] = {}
 
     def require(self, cnode: CNode, key: str, scalar: torch.Tensor) -> None:
         self.req_index.append((cnode, key))
@@ -96,6 +99,7 @@ def _cnode_for(node, trace_levels: int) -> CNode:
     from dbsp_tpu_torch.operators.join import JoinOp
     from dbsp_tpu_torch.operators.topk import TopKOp
     from dbsp_tpu_torch.operators.trace_op import TraceOp
+    from dbsp_tpu_torch.timeseries import WatermarkMonotonic, WindowOp
 
     op = node.operator
     if isinstance(op, ZSetInput):
@@ -124,6 +128,10 @@ def _cnode_for(node, trace_levels: int) -> CNode:
         return cnodes.CSumN(node, op)
     if isinstance(op, Apply):
         return cnodes.CApply(node, op)
+    if isinstance(op, WatermarkMonotonic):
+        return cnodes.CWatermark(node, op)
+    if isinstance(op, WindowOp):
+        return cnodes.CWindow(node, op)
     if isinstance(op, OutputOperator):
         return cnodes.COutput(node, op)
     raise NotImplementedError(
@@ -201,12 +209,16 @@ class _ScanGraph:
     batch is the same object, so the same object must mean the same
     content."""
 
-    def __init__(self, sig, graph, bufs, post, outputs, req):
+    def __init__(self, sig, graph, bufs, post, outputs, req,
+                 writeback_bytes: int = 0):
         self.sig, self.graph = sig, graph
         self.bufs = bufs        # the input state tree (the buffers)
         self.post = post        # the state tree the captured ticks made
         self.outputs = outputs  # the last tick's outputs
         self.req = req          # the requirement buffer it folds into
+        # the bytes a replay copies back into the buffers: every leaf the
+        # ticks wrote (level 0s, out traces, every level of a GC'd trace)
+        self.writeback_bytes = writeback_bytes
         self.wrappers: Dict[int, Batch] = {}  # id(buffer batch) -> batch
 
     def copy_in(self, cur, buf) -> int:
@@ -282,6 +294,22 @@ class CompiledHandle:
         self.cnodes: List[CNode] = [_cnode_for(n, trace_levels)
                                     for n in self.order]
         self.by_index = {cn.node.index: cn for cn in self.cnodes}
+        for cn in self.cnodes:
+            if not isinstance(cn, cnodes.CWindow):
+                continue
+            tgt = self.by_index.get(cn.node.inputs[0])
+            if not isinstance(tgt, cnodes.CTrace):
+                continue
+            # a window slices each viewed level: its trace takes no slots
+            tgt._no_slots = True
+            if cn.op.gc:
+                # a GC'd trace is bounded by the window's span, not the
+                # run's length: presize does not project it linearly. A
+                # tick truncates (shrinks) every level, so maintain
+                # refetches its live counts (its cache assumes only level
+                # 0 changes in a tick) and snapshot copies every level
+                tgt.MONOTONE_CAPS = frozenset()
+                tgt._gc_refresh = True
         # host InputHandle ops -> node indices (for feeds dicts)
         self._op_to_index = {id(n.operator): n.index for n in self.order}
         self._gen_fn = gen_fn
@@ -426,6 +454,17 @@ class CompiledHandle:
             if st2 is not None:
                 new_states[str(cn.node.index)] = st2
             values[cn.node.index] = out
+        for idx, bound in ctx.gc_bounds.items():
+            # a window's GC: truncate every level of its trace, and recount
+            # base_live (the deep levels' live rows), which it shrank: the
+            # trace's requirement stays exact, not high by what an
+            # interval truncated
+            levels, base = new_states[str(idx)]
+            levels = tuple(cnodes.truncate_below(lvl, bound)
+                           for lvl in levels)
+            new_states[str(idx)] = (levels, sum(
+                (lvl.live_count() for lvl in levels[1:]),
+                torch.zeros_like(base)))
         req = (torch.stack(ctx.reqs) if ctx.reqs
                else torch.zeros((0,), dtype=torch.int64, device=self.device))
         self._checks = ctx.req_index  # the same order every tick
@@ -601,10 +640,12 @@ class CompiledHandle:
                                    "chunk cannot be captured")
             # what the ticks wrote goes back into the buffers (a written
             # leaf is a new tensor: a tick writes no state in place)
+            back = 0
             for o, b in zip(written, held):
                 if not _same_buffer(o, b):
                     b.copy_(o)
-        return _ScanGraph(sig, graph, bufs, st, outs, self._req)
+                    back += b.element_size() * b.numel()
+        return _ScanGraph(sig, graph, bufs, st, outs, self._req, back)
 
     def _run_pipelined(self, t0: int, upto: int) -> None:
         """Run ticks [t0, upto) at pipeline depth 1: queue tick t, then
@@ -699,9 +740,10 @@ class CompiledHandle:
             # writes, and its validated requirement already says how full
             # it is; deeper levels change only here (drain sums are upper
             # bounds: netting may shrink the real count, and an
-            # over-estimate only drains early)
+            # over-estimate only drains early). A window-GC'd trace
+            # shrinks every level each tick: its counts are refetched
             cache = getattr(cn, "_live_cache", None)
-            if cache is None or len(cache) != K:
+            if cache is None or len(cache) != K or cn._gc_refresh:
                 cache = [int(b.live_count()) for b in levels]
             lives = cache
             req = self._req_value(cn, cn.level_keys[0])
@@ -871,11 +913,13 @@ class CompiledHandle:
 
         Incremental: a deep trace level changes only in :meth:`maintain`,
         which replaces the level's batch, so a level whose batch is the
-        very object copied by an earlier snapshot reuses that copy."""
+        very object copied by an earlier snapshot reuses that copy. A
+        window-GC'd trace, whose every level a tick truncates, is copied
+        whole."""
         snap: Dict[str, Any] = {}
         for key, st in self.states.items():
             cn = self.by_index.get(int(key))
-            if not isinstance(cn, cnodes._Leveled):
+            if not isinstance(cn, cnodes._Leveled) or cn._gc_refresh:
                 snap[key] = _copy_tree(st)
                 continue
             levels, base = st

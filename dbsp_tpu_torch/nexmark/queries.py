@@ -1,4 +1,4 @@
-"""Nexmark queries as circuit builders — q0-q4, q6, q8, q9, q12-q22 of
+"""Nexmark queries as circuit builders — q0-q9 and q12-q22 of
 ``dbsp_tpu/nexmark/queries.py``. A builder takes the three relation
 streams (persons, auctions, bids) and returns the query's output stream.
 Integer division is floor division on int64, as ``jnp``'s ``//`` is."""
@@ -70,6 +70,83 @@ def q3(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
         by_seller,
         lambda k, pv, av: ((av[0],), (pv[0], pv[1], pv[2])),
         [I64], [I32, I32, I32], name="q3-join")
+
+
+Q5_WINDOW_MS = 10_000
+Q5_HOP_MS = 2_000
+Q5_RETAIN_MS = 4 * Q5_WINDOW_MS  # completed windows linger this long
+
+
+def q5(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Hot items: the auctions with the most bids in each hopping window
+    (10 s windows, a 2 s hop). A bid belongs to exactly window / hop = 5
+    windows, so the hop is a static flat_map of fan-out 5. A watermark on
+    bid time drives monotone bounds: windows that start below watermark -
+    retention are retracted and their trace state is truncated (window
+    GC). Output: (window_start, auction) for the auctions whose bid count
+    equals the window's maximum."""
+    fanout = Q5_WINDOW_MS // Q5_HOP_MS
+
+    def assign(k, v):
+        ts = v[M.B_DATE]
+        first = (ts // Q5_HOP_MS) * Q5_HOP_MS - (fanout - 1) * Q5_HOP_MS
+        starts = torch.stack([first + i * Q5_HOP_MS for i in range(fanout)])
+        auction = k[0].expand(starts.shape)
+        keep = torch.ones(starts.shape, dtype=torch.bool,
+                          device=starts.device)
+        return (starts, auction), (), keep
+
+    per_window = bids.flat_map_rows(assign, fanout, (I64, I64), (),
+                                    name="q5-windows")
+    wm = bids.watermark_monotonic(lambda k, v: v[M.B_DATE], lateness=0)
+    bounds = wm.apply(
+        lambda w: None if w is None else (w - Q5_RETAIN_MS, 1 << 62),
+        name="q5-bounds")
+    per_window = per_window.window(bounds, gc=True)
+    counts = per_window.aggregate(Count(), name="q5-count")
+    # counts: key (window, auction), value (n); the largest n per window
+    by_window = counts.index_by(
+        lambda k, v: (k[0],), (I64,),
+        val_fn=lambda k, v: (k[1], v[0]), val_dtypes=(I64, I64),
+        name="q5-by-window", preserves_first_key=True)
+    maxes = by_window.aggregate(Max(1), name="q5-max")
+    hot = by_window.join_index(
+        maxes, lambda k, cv, mv: (k, (cv[0], cv[1], mv[0])),
+        (I64,), (I64, I64, I64), name="q5-join", preserves_first_key=True)
+    winners = hot.filter_rows(lambda k, v: v[1] == v[2], name="q5-winners")
+    return winners.map_rows(lambda k, v: ((k[0], v[0]), ()), (I64, I64),
+                            (), name="q5-project", preserves_first_key=True)
+
+
+Q7_WINDOW_MS = 10_000
+
+
+def q7(persons: Stream, auctions: Stream, bids: Stream) -> Stream:
+    """Highest bid of the latest completed tumbling window: a watermark on
+    bid time drives monotone bounds, the window keeps the bids of the last
+    complete period, and a Max reduces them. The bounds floor the
+    watermark (``//`` floors on tensors too, below zero included).
+    Output: (window_end, max_price)."""
+    wm = bids.watermark_monotonic(lambda k, v: v[M.B_DATE], lateness=0)
+
+    def to_bounds(w):
+        if w is None:
+            return None
+        end = (w // Q7_WINDOW_MS) * Q7_WINDOW_MS
+        return (end - Q7_WINDOW_MS, end)
+
+    bounds = wm.apply(to_bounds, name="q7-bounds")
+    by_time = bids.index_by(
+        lambda k, v: (v[M.B_DATE],), (I64,),
+        val_fn=lambda k, v: (v[M.B_PRICE],), val_dtypes=(I64,),
+        name="q7-by-time")
+    windowed = by_time.window(bounds)
+    # every row of the one-period window shares its end: key by it
+    keyed = windowed.map_rows(
+        lambda k, v: (((k[0] // Q7_WINDOW_MS) * Q7_WINDOW_MS
+                       + Q7_WINDOW_MS,), (v[0],)),
+        (I64,), (I64,), name="q7-rekey")
+    return keyed.aggregate(Max(0), name="q7-max")
 
 
 Q8_WINDOW_MS = 10_000

@@ -7,6 +7,8 @@ Two levels in the same power-of-two capacity bucket merge (one rank merge
 levels and O(1) amortized merges per insert. A maintenance budget bounds
 the rows one insert may merge; deferred merges leave correct but
 uncompacted state, since every consumer fans out over all levels.
+:meth:`Spine.truncate_keys_below` drops the state below a consumer's
+monotone lower bound (a window's garbage collection).
 
 The reference's residency tiers (levels spilled to host memory and disk)
 are not part of the port.
@@ -14,7 +16,7 @@ are not part of the port.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -108,6 +110,20 @@ class Spine:
                     self.key_dtypes, self.val_dtypes, device=self.device)
         return self._consolidated
 
+    def truncate_keys_below(self, bound_key: Tuple) -> None:
+        """Drop every row whose key tuple is lexicographically below
+        ``bound_key``: consumers that declare monotone lower bounds (a
+        window with ``gc=True``) can never read that state again. Every
+        level is rewritten and shrunk to the bucket of its live rows; an
+        emptied level goes."""
+        new: List[Batch] = []
+        for b in self.batches:
+            kept = _shrink(_truncate_batch(b, bound_key))
+            if kept is not None:
+                new.append(kept)
+        self.batches = sorted(new, key=lambda b: b.cap, reverse=True)
+        self._consolidated = None
+
     def to_dict(self) -> Dict[Row, int]:
         out: Dict[Row, int] = {}
         for b in self.batches:
@@ -116,6 +132,27 @@ class Spine:
                 if out[r] == 0:
                     del out[r]
         return out
+
+
+def _at_or_above(keys: Sequence[torch.Tensor], bound: Tuple
+                 ) -> torch.Tensor:
+    """Whether each row's key tuple is >= ``bound`` lexicographically,
+    each column compared in its own dtype."""
+    ge = torch.zeros_like(keys[0], dtype=torch.bool)
+    all_eq = torch.ones_like(keys[0], dtype=torch.bool)
+    for k, bv in zip(keys, bound):
+        kv = torch.full((), bv, dtype=k.dtype, device=k.device)
+        ge = ge | (all_eq & (k > kv))
+        all_eq = all_eq & (k == kv)
+    return ge | all_eq
+
+
+def _truncate_batch(b: Batch, bound_key: Tuple) -> Batch:
+    """A consolidated level without its rows below ``bound_key``: dropping
+    rows of a sorted, netted run and packing the rest to the front leaves
+    it consolidated."""
+    keep = _at_or_above(b.keys[:len(bound_key)], tuple(bound_key))
+    return b.compacted(keep & (b.weights != 0))
 
 
 def _shrink(batch: Batch) -> Optional[Batch]:

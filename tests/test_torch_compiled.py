@@ -30,6 +30,7 @@ from dbsp_tpu_torch.nexmark import NexmarkGenerator as TNexmarkGenerator
 from dbsp_tpu_torch.nexmark import build_inputs as tbuild_inputs
 from dbsp_tpu_torch.nexmark import device_gen as tdevice_gen
 from dbsp_tpu_torch.nexmark import queries as tqueries
+from dbsp_tpu_torch.zset.batch import bucket_cap
 from test_torch_operators import _arange2, _twice
 
 CFG = GeneratorConfig(seed=1)
@@ -52,12 +53,21 @@ def _port_build(query):
     return build
 
 
-def _host_run(query, ticks):
+def _cfgs(rate):
+    """The reference's and the port's generator configs: seed 1, at
+    ``rate`` events/s of event time (None: the default rate)."""
+    if rate is None:
+        return CFG, TCFG
+    return (GeneratorConfig(seed=1, first_event_rate=rate),
+            TGeneratorConfig(seed=1, first_event_rate=rate))
+
+
+def _host_run(query, ticks, rate=None):
     """The reference's host engine on the numpy generator's events, one
     output dict per tick (cached: the longest run serves shorter ones)."""
-    have = _HOST_RUNS.get(query)
+    have = _HOST_RUNS.get((query, rate))
     if have is None or len(have) < ticks:
-        gen = NexmarkGenerator(CFG)
+        gen = NexmarkGenerator(_cfgs(rate)[0])
         handle, (handles, out) = Runtime.init_circuit(1, _ref_build(query))
         have = []
         for t in range(ticks):
@@ -65,25 +75,26 @@ def _host_run(query, ticks):
             handle.step()
             b = out.take()
             have.append(b.to_dict() if b is not None else {})
-        _HOST_RUNS[query] = have
+        _HOST_RUNS[(query, rate)] = have
     return have[:ticks]
 
 
-def _gen_fn(handles):
+def _gen_fn(handles, cfg=TCFG):
     hp, ha, hb = handles
 
     def gen_fn(tick):
-        p, a, b = tdevice_gen.generate_tick(TCFG, tick * EPT, EPT)
+        p, a, b = tdevice_gen.generate_tick(cfg, tick * EPT, EPT)
         return {hp: p, ha: a, hb: b}
     return gen_fn
 
 
 def _compiled_run(query, ticks, validate_every=1, t0=0, handle=None,
-                  trace_levels=cnodes.TRACE_LEVELS, scan=False):
+                  trace_levels=cnodes.TRACE_LEVELS, scan=False, rate=None,
+                  snapshot_every=1):
     if handle is None:
         handle = TRuntime.init_circuit(1, _port_build(query), device="cpu")
     h, (handles, out) = handle
-    ch = compile_circuit(h, gen_fn=_gen_fn(handles),
+    ch = compile_circuit(h, gen_fn=_gen_fn(handles, _cfgs(rate)[1]),
                          trace_levels=trace_levels)
     outs = {}
 
@@ -92,11 +103,12 @@ def _compiled_run(query, ticks, validate_every=1, t0=0, handle=None,
         outs[next_tick - 1] = b.to_dict() if b is not None else {}
 
     ch.run_ticks(t0, ticks, validate_every=validate_every,
-                 on_validated=capture, scan=scan)
+                 on_validated=capture, scan=scan,
+                 snapshot_every=snapshot_every)
     return [outs.get(t, {}) for t in range(t0, t0 + ticks)], ch
 
 
-def _ref_compiled_run(query, ticks, validate_every, scan):
+def _ref_compiled_run(query, ticks, validate_every, scan, rate=None):
     """The reference's compiled engine, each tick or (``scan``) each
     interval one dispatch: {last tick of each validated interval: its
     output}."""
@@ -104,9 +116,10 @@ def _ref_compiled_run(query, ticks, validate_every, scan):
     from dbsp_tpu.nexmark import device_gen
 
     h, ((hp, ha, hb), out) = Runtime.init_circuit(1, _ref_build(query))
+    cfg = _cfgs(rate)[0]
 
     def gen_fn(tick):
-        p, a, b = device_gen.generate_tick(CFG, tick * EPT, EPT)
+        p, a, b = device_gen.generate_tick(cfg, tick * EPT, EPT)
         return {hp: p, ha: a, hb: b}
 
     ch = rcompile_circuit(h, gen_fn=gen_fn)
@@ -683,3 +696,104 @@ def test_scan_graph_buffers_keep_snapshot_identity_honest():
     d1 = g.state()["0"][0][1]
     assert d1 is not d0 and d1.weights is deep.weights
     assert d1.to_dict() == drained.to_dict()
+
+
+# ---------------------------------------------------------------------------
+# Watermarks and windows: Nexmark q5 and q7
+# ---------------------------------------------------------------------------
+
+WINDOW_RATE = 40  # events/s of event time: a 400-event tick spans 10 s
+
+
+def _gc_trace(ch):
+    """The trace node that q5's window GCs."""
+    (win,) = [cn for cn in ch.cnodes
+              if isinstance(cn, cnodes.CWindow) and cn.op.gc]
+    return ch.by_index[win.node.inputs[0]]
+
+
+def _trace_req(ch, trace_cn) -> int:
+    """The last validated "trace" requirement of ``trace_cn``."""
+    return max(r for (cn, key), r in zip(ch._checks, ch.last_req)
+               if cn is trace_cn and key == "trace")
+
+
+@pytest.mark.parametrize("query", ["q5", "q7"])
+def test_compiled_window_query_matches_reference_compiled(query):
+    """q5 (hopping windows with window GC, a linear Count, a Max and a
+    join) and q7 (a tumbling window and a Max) at 40 events/s, so that
+    q7's window moves every tick: the port's compiled run equals the
+    reference's compiled run and its host engine, tick for tick."""
+    ticks = 5
+    comp, ch = _compiled_run(query, ticks, rate=WINDOW_RATE)
+    ref, _ = _ref_compiled_run(query, ticks, 1, scan=False, rate=WINDOW_RATE)
+    host = _host_run(query, ticks, rate=WINDOW_RATE)
+    assert comp == [ref.get(t, {}) for t in range(ticks)] == host
+    assert sum(len(t) for t in host) >= (10 if query == "q5" else 3)
+    kinds = {type(cn).__name__ for cn in ch.cnodes}
+    assert {"CWatermark", "CApply", "CWindow"} <= kinds
+
+
+def test_compiled_window_gc_bounds_trace_state():
+    """The GC'd trace is bounded by the window's span: its validated
+    "trace" requirement levels off while the stream doubles, it never
+    takes slots, and presize leaves it out of the linear projection (an
+    empty ``MONOTONE_CAPS``) where another trace of q5 is projected."""
+    _, ch = _compiled_run("q5", 6, rate=WINDOW_RATE)
+    tr = _gc_trace(ch)
+    assert tr.MONOTONE_CAPS == frozenset() and tr._gc_refresh
+    early = _trace_req(ch, tr)
+    ch.run_ticks(6, 6, validate_every=1)
+    late = _trace_req(ch, tr)
+    # without GC the trace would integrate the stream (twice the events
+    # by tick 12); with it the rows plateau at the retained span
+    assert late < early * 1.6, (early, late)
+    assert tr._slot_cap is None and tr._no_slots
+    other = next(cn for cn in ch.cnodes
+                 if isinstance(cn, cnodes.CTrace) and cn is not tr)
+    before = (tr.caps["trace"], other.caps["trace"])
+    ch.presize(16.0)
+    assert tr.caps["trace"] <= max(before[0], 2 * bucket_cap(2 * late))
+    assert other.caps["trace"] > before[1]
+
+
+def test_compiled_window_gc_replay_across_truncating_ticks(monkeypatch):
+    """Seed capacities small enough that intervals of two ticks overflow,
+    across ticks whose GC truncates every level of q5's windowed trace:
+    each replay from its snapshot ends equal to the reference's host
+    engine, the compiled levels hold the reference spine's rows,
+    maintain recounts what the truncations left (``base_live`` is the
+    deep levels' live rows: a live-count cache that only sees drains
+    would hold it high), and snapshot reuses no deep level of the GC'd
+    trace."""
+    monkeypatch.setattr(cnodes, "LEVEL0_CAP", 64)
+    monkeypatch.setattr(cnodes.CTrace, "DEFAULT_CAP", 64)
+    ticks, every = 8, 2
+    comp, ch = _compiled_run("q5", ticks, validate_every=every,
+                             rate=WINDOW_RATE)
+    cfg = _cfgs(WINDOW_RATE)[0]
+    rh, (rin, rout) = Runtime.init_circuit(1, _ref_build("q5"))
+    gen = NexmarkGenerator(cfg)
+    for t in range(ticks):
+        gen.feed(rin, t * EPT * 50, (t + 1) * EPT * 50)
+        rh.step()
+        if t % every == every - 1:
+            assert comp[t] == rout.to_dict(), t
+    assert ch.overflow_replays > 0, "no grow + restore + replay happened"
+    tr = _gc_trace(ch)
+    levels, base = ch.states[str(tr.node.index)]
+    held: dict = {}
+    for lvl in levels:
+        for r, w in lvl.to_dict().items():
+            held[r] = held.get(r, 0) + w
+    rspine = next(n.operator.spine for n in rh.circuit.nodes
+                  if n.operator.name == "trace"
+                  and len(n.operator.spine.key_dtypes) == 2)
+    assert {r: w for r, w in held.items() if w} == rspine.to_dict()
+    assert int(base) == sum(int(lvl.live_count()) for lvl in levels[1:])
+    assert ch.maintain_stats["rows_moved"] > 0
+    # snapshot copies every level of the GC'd trace: it keeps no copy of
+    # a deep level for reuse, as it does for the other traces
+    cached = {key for key, _ in ch._snap_levels}
+    assert str(tr.node.index) not in cached and cached
+
