@@ -42,7 +42,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
              each with Max + present, Count + present, Max alone, three
              ops without an avg and all six ops)
              and on inputs of the queries' sizes (ladders up to 2M rows,
-             100k-row deltas);
+             100k-row deltas); the ladder gather also with distinct upper
+             bounds and the trailing key column gathered back at once
+             (qhi_keys with gather_keys=1, the rolling aggregate's and
+             the radix tree's call) over key-only levels and levels with
+             values, with empty ranges and dead queries whose bounds
+             wrapped past int64 (counted apart in the "kernels:" line);
 4. queries — Nexmark q4, q3, q8 and q15, one after the other, each on the
              host runtime on the card at 100,000 events per tick: 4 warm
              ticks then 20 measured (2,000,000 events, a cut of Nexmark's
@@ -77,6 +82,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
              table; the top-K oracles sort each group once with
              np.lexsort; q7's is the latest completed period's max price
              by its end, q5's every retained window's most-bid auctions);
+             then the range-gather family, whose circuits are the
+             reference's own compiled test circuits (no public Nexmark
+             query has a rolling aggregate or a band join): "rolling", a
+             10 s Max of bid price per auction keyed (auction,
+             date_time), through the radix tree, at 10,000 events/s of
+             event time, and "range_join", bids joined with the auctions
+             whose id lies within +-2 of theirs, each at 2 warm and 6
+             measured ticks; their oracles are numpy (the rolling
+             window's start by searchsorted, then a range max; one
+             equi-join for each offset) and their outputs, millions of
+             rows, are integrated as numpy rows; the rolling path must
+             launch the ladder gather with range queries (counted);
 4b. compiled — Nexmark q4, q3 and q8 on the compiled engine, events
              generated on the card (device_gen), 100,000 events per tick,
              the reference bench's protocol: 4 warm ticks validated every
@@ -84,7 +101,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
              validated every 8, pipelined; then 8 more ticks under the
              profiler for the card's busy share; q17 (the general Min and
              Max in agg_ladder, joins over aggregate outputs) the same way
-             at 3 warm and 8 measured ticks, 4 profiled, and q9 and q6
+             at 3 warm and 8 measured ticks, 4 profiled, and rolling
+             (CRolling: window recompute, its three gathers a tick) and
+             range_join (CRangeJoin: a shared buffer a side) at 4 warm
+             and 8 measured, 4 profiled (compiled rolling against the
+             host engine's radix tree, tick for tick), and q9 and q6
              (the compiled top-K, CTopK, whose gathers launch the ladder
              consumer) at 4 warm and 8 measured, 4 profiled, and q5 and q7
              (CWatermark, CApply on its validity, CWindow; q5's window GC
@@ -120,7 +141,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
              on the card;
 4d. scanned — in a process of its own (profiling graph replays left
              later profiler sessions of the process without their first
-             device events): compiled q3, q4, q8, q17, q9 and q5 as in 4b
+             device events): compiled q3, q4, q8, q17, q9, q5 and rolling
+             as in 4b
              (q5's window GC writes every level of its trace each tick, so
              each replay copies them back into the graph's buffers), each
              run twice from the same warm-up: eagerly, then in the scanned mode (each
@@ -158,7 +180,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
              through the port on the CPU (plain versions) and on the card:
              equal rows per tick (q7 at 1,000 events/s of event time, so
              its window moves every tick; q5 at 250, so its GC truncates
-             in the third);
+             in the third; rolling at 1,000, so its windows' lower bounds
+             cut);
 6. timing  — each kernel, its plain version and (where one exists) one
              PyTorch library call, on the largest inputs the queries gave
              it: ``ms`` per call by CUDA events (host gaps between
@@ -220,8 +243,8 @@ CROSS_TICKS, CROSS_EVENTS = 3, 10_000
 # a tick spans 10 s and their windows move and retire; in the cross-check
 # (10,000-event ticks) q7's window moves every 10 s tick and q5's GC
 # truncates from the third 40 s tick.
-GEN_RATE = {"q5": 10_000, "q7": 10_000}
-CROSS_RATE = {"q5": 250, "q7": 1_000}
+GEN_RATE = {"q5": 10_000, "q7": 10_000, "rolling": 10_000}
+CROSS_RATE = {"q5": 250, "q7": 1_000, "rolling": 1_000}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 # The data sheet gives no integer rate outside the tensor cores. This one
@@ -284,6 +307,12 @@ QUERIES = {
     # and masked gathers, its GC a compaction (no kernel of the port)
     "q5": ("join_ladder", "gather_ladder", "segment_reduce", "rank_merge"),
     "q7": ("gather_ladder", "segment_reduce", "rank_merge"),
+    # the rolling aggregate through the radix tree: every level's range
+    # gathers, its reductions, the tree's and the traces' merges; the
+    # range join's probes and expansions are plain torch (XLA in the
+    # reference), its traces merge
+    "rolling": ("gather_ladder", "segment_reduce", "rank_merge"),
+    "range_join": ("rank_merge",),
 }
 # (warm, measured) ticks of a host query, where not WARM_TICKS, TICKS
 HOST_DEPTH = {q: (2, 6) for q in ("q0", "q1", "q2", "q13", "q14", "q17",
@@ -292,6 +321,7 @@ HOST_DEPTH = {q: (2, 6) for q in ("q0", "q1", "q2", "q13", "q14", "q17",
 HOST_DEPTH["q12"] = (4, 8)  # 12 ticks: across a 10-tick window's end
 # 10 ticks of 10 s: q5's 40 s retention truncates from the sixth
 HOST_DEPTH["q5"] = HOST_DEPTH["q7"] = (2, 8)
+HOST_DEPTH["rolling"] = HOST_DEPTH["range_join"] = (2, 6)
 # lex-probe launches a measured tick: one per distinct (its old-weights
 # lookup probes both sides in one launch)
 PROBES_PER_TICK = {"q8": 1, "q15": 1, "q16": 8}
@@ -307,9 +337,14 @@ COMPILED = {
     # Count gathers its accumulator with the ladder consumer
     "q5": ("join_ladder", "gather_ladder", "agg_ladder", "rank_merge"),
     "q7": ("agg_ladder", "rank_merge"),
+    # CRolling's three gathers (the affected rows and the windows in
+    # range mode, the old outputs), its window reduce and its merges;
+    # CRangeJoin's traces merge
+    "rolling": ("gather_ladder", "segment_reduce", "rank_merge"),
+    "range_join": ("rank_merge",),
 }
 # the compiled paths phase 4d runs eagerly and scanned
-SCANNED = ("q3", "q4", "q8", "q17", "q9", "q5")
+SCANNED = ("q3", "q4", "q8", "q17", "q9", "q5", "rolling")
 # the device kernels (profile_query.PORT_KERNELS) that each wrapper on a
 # compiled path launches: the profiler sees these, and join_ladder and
 # gather_ladder launch the same two
@@ -319,15 +354,31 @@ DEVICE_KERNELS = {
     "gather_ladder": ("consumer_probe_kernel", "consumer_expand_kernel"),
     "rank_merge": ("rank_merge_kernel",),
     "agg_ladder": ("agg_ladder_kernel",),
+    "segment_reduce": ("rows_kernel",),
+}
+# the device kernels whose launches the wrappers' counts fix: one per
+# launch of each wrapper named (segment reduce's rows_kernel and
+# fin_avg_kernel launch by a call's rows and spec, fill_kernel always).
+# A profile whose launches of these differ from the counts lost events.
+ACCOUNTED_KERNELS = {
+    "probe_ladder_kernel": ("lex_probe_ladder",),
+    "consumer_probe_kernel": ("join_ladder", "gather_ladder"),
+    "consumer_expand_kernel": ("join_ladder", "gather_ladder"),
+    "rank_merge_kernel": ("rank_merge",),
+    "fill_kernel": ("segment_reduce",),
+    "agg_ladder_kernel": ("agg_ladder",),
 }
 C_WARM, C_TICKS, C_VALIDATE, C_PROFILE = 4, 24, 8, 8
 # intervals after phase 4d's measured ones, each held to the eager run and
-# profiled; the first both runs' profiles can read is the compared one
+# profiled; the first both runs' profiles can read (each kept its
+# sentinels, lost no launch the counts account for, and scanned, held no
+# capture) is the compared one
 SCAN_PROFILE_INTERVALS = 4
 # (warm, measured, profiled) ticks of a compiled query, where not C_WARM,
 # C_TICKS, C_PROFILE
 COMPILED_DEPTH = {"q17": (3, 8, 4), "q9": (4, 8, 4), "q6": (4, 8, 4),
-                  "q5": (4, 8, 4), "q7": (4, 8, 4)}
+                  "q5": (4, 8, 4), "q7": (4, 8, 4), "rolling": (4, 8, 4),
+                  "range_join": (4, 8, 4)}
 # trace levels of a compiled query, where not the reference bench's pick
 # for its measured ticks (one level at 8): q5's GC'd trace on two, so that
 # a tick truncates a deep level too, maintain drains into it, and a
@@ -392,6 +443,8 @@ class Checker:
     def __init__(self):
         self.max_err = {k: 0.0 for k in REPLACES}
         self.cases = {k: 0 for k in REPLACES}
+        # of the gather's cases, those in range mode with gather_keys=1
+        self.range_gather_keys = 0
 
     def check(self, name: str, what: str, kernel_fn, plain_fn, *args,
               **kw):
@@ -1014,6 +1067,72 @@ def check_consumer_cases(ck: Checker, rng, dev) -> None:
             fail(f"{what}: total {totals}, want 0")
 
 
+def check_range_gather_keys(ck: Checker, rng, dev) -> int:
+    """The ladder gather with distinct upper bounds AND the trailing key
+    column gathered back (``qhi_keys`` with ``gather_keys=1``), as the
+    rolling aggregate and the radix tree call it: (p, t)-keyed levels
+    without value columns (the rolling aggregate's key-only levels) and
+    with one and two; live queries with empty ranges (qhi < qlo) and
+    ranges reaching below time 0; dead queries whose bounds cover live
+    rows, or wrapped past int64 (a sentinel row's t + range, or the
+    padding's sentinel - range), which must gather nothing; out_cap
+    roomy, at the total, one under it and tiny. Returns the cases."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+    from dbsp_tpu_torch.zset.batch import Batch
+
+    big = torch.iinfo(torch.int64).max
+    n0 = ck.cases["gather_ladder"]
+    m = 700
+    for nv in (0, 1, 2):
+        spec = ((0, 40, np.int64), (0, 5_000, np.int64)) + \
+            ((-100, 100, np.int64),) * nv
+        ladder = [consolidated(rng, n, cap, dev, nk=2, spec=spec)
+                  for n, cap in ((3_000, 4096), (700, 1024), (60, 64))]
+        qp = torch.from_numpy(rng.integers(0, 40, m)).to(dev)
+        qlo = torch.from_numpy(rng.integers(-600, 5_000, m)).to(dev)
+        # widths below 0 make empty ranges
+        qhi = qlo + torch.from_numpy(rng.integers(-60, 900, m)).to(dev)
+        live = torch.from_numpy(rng.random(m) < 0.7).to(dev)
+        # dead queries: a third wrapped past int64 above, a third at the
+        # padding's (sentinel - range, sentinel), the rest plain bounds
+        kind = torch.from_numpy(rng.integers(0, 3, m)).to(dev)
+        sent = torch.full_like(qp, big)
+        wrap = ~live & (kind == 0)
+        pad = ~live & (kind == 1)
+        qp = torch.where(wrap | pad, sent, qp)
+        qlo = torch.where(wrap, sent, torch.where(pad, sent - 900, qlo))
+        qhi = torch.where(wrap, sent + 900, torch.where(pad, sent, qhi))
+        if not bool((qhi[wrap] < 0).all()):
+            fail("range gather: the wrapped bounds did not wrap")
+        args = ((qp, qlo), live, ladder)
+        kw = {"qhi_keys": (qp, qhi), "gather_keys": 1}
+        total = int(ck_mod.gather_ladder_plain(*args, 1 << 16, **kw)[1])
+        if total < 1_000:
+            fail(f"range gather over {nv} value columns matched only "
+                 f"{total} rows")
+        for out_cap in (1 << 16, total, total - 1, 7):
+            ck.check("gather_ladder", f"range + gather_keys, {nv} value "
+                     f"columns, out_cap {out_cap}", GATHER,
+                     ck_mod.gather_ladder_plain, *args, out_cap, **kw)
+        # every query dead, the wrapped ones included: nothing gathered
+        none = ck.check("gather_ladder", f"range + gather_keys, {nv} value "
+                        "columns, every query dead", GATHER,
+                        ck_mod.gather_ladder_plain, args[0],
+                        torch.zeros_like(live), ladder, 64, **kw)
+        if int(none[-1]):
+            fail(f"range gather: dead queries gathered {int(none[-1])} "
+                 "rows")
+        if nv:
+            # the same levels stripped of their values: key-only levels
+            key_only = [Batch(b.keys, (), b.weights) for b in ladder]
+            ck.check("gather_ladder", f"range + gather_keys, key-only "
+                     f"levels of {nv}", GATHER, ck_mod.gather_ladder_plain,
+                     args[0], live, key_only, 1 << 16, **kw)
+    return ck.cases["gather_ladder"] - n0
+
+
 def netting_ladder(rng, dev):
     """Levels whose rows cancel across levels: the second retracts some
     rows of the first, the third re-inserts some of those."""
@@ -1249,6 +1368,7 @@ def check_kernels(ck: Checker, dev) -> None:
     check_probe_runs(ck, rng, dev)
     check_cap0_and_wide(ck, rng, dev)
     check_consumer_cases(ck, rng, dev)
+    ck.range_gather_keys = check_range_gather_keys(ck, rng, dev)
     check_agg_ladder(ck, rng, dev)
     # -- q4-sized ladder: bids-schema levels up to 2M rows, 100k delta
     bids = bids_row(60_000)
@@ -1640,13 +1760,193 @@ def q7_oracle(cols) -> dict:
     return {(end, int(price[inside].max())): 1} if inside.any() else {}
 
 
+# The rolling and range-join paths: no public Nexmark query uses a rolling
+# aggregate or a band join, so these are the reference's own compiled test
+# circuits (tests/test_compiled.py: _rolling_build, _range_join_build) over
+# the Nexmark streams
+ROLLING_RANGE_MS = 10_000
+RANGE_JOIN_OFFSETS = (-2, 2)
+
+
+def rolling_circuit(persons, auctions, bids):
+    """A rolling 10 s Max of bid price per auction, keyed (auction,
+    date_time): SQL's MAX(price) OVER (PARTITION BY auction ORDER BY
+    date_time RANGE BETWEEN INTERVAL '10' SECOND PRECEDING AND CURRENT
+    ROW). The host engine answers it from the radix tree, the compiled
+    engine by window recompute."""
+    import torch
+
+    from dbsp_tpu_torch.nexmark import model as M
+    from dbsp_tpu_torch.operators import Max
+
+    keyed = bids.index_by(
+        lambda k, v: (k[0], v[M.B_DATE]), (torch.int64, torch.int64),
+        val_fn=lambda k, v: (v[M.B_PRICE],), val_dtypes=(torch.int64,),
+        name="roll-key")
+    return keyed.partitioned_rolling_aggregate(Max(0), ROLLING_RANGE_MS,
+                                               name="roll-max")
+
+
+def range_join_circuit(persons, auctions, bids):
+    """Bids (auction, price) with the auctions (id, category) whose id
+    lies within +-2 of the bid's auction: (auction, id, price,
+    category)."""
+    import torch
+
+    from dbsp_tpu_torch.nexmark import model as M
+
+    i64 = torch.int64
+    b = bids.index_by(lambda k, v: (k[0],), (i64,),
+                      val_fn=lambda k, v: (v[M.B_PRICE],), val_dtypes=(i64,),
+                      name="rj-bids")
+    a = auctions.index_by(lambda k, v: (k[0],), (i64,),
+                          val_fn=lambda k, v: (v[M.A_CATEGORY],),
+                          val_dtypes=(i64,), name="rj-aucs")
+    return b.join_range(
+        a, *RANGE_JOIN_OFFSETS,
+        lambda lk, lv, rk, rv: ((lk[0],), (rk[0], lv[0], rv[0])),
+        (i64,), (i64, i64, i64), name="rj")
+
+
+CIRCUITS = {"rolling": rolling_circuit, "range_join": range_join_circuit}
+
+
+def net_rows(rows: np.ndarray) -> np.ndarray:
+    """Rows [n, columns + weight] netted: sorted by the columns, the
+    weights of equal rows summed, zero-weight rows dropped."""
+    if not len(rows):
+        return rows
+    r = rows[np.lexsort(rows[:, :-1].T[::-1])]
+    starts = np.flatnonzero(np.r_[True, (r[1:, :-1] != r[:-1, :-1]).any(1)])
+    w = np.add.reduceat(r[:, -1], starts)
+    out = np.concatenate([r[starts, :-1], w[:, None]], 1)
+    return out[w != 0]
+
+
+def live_rows(b) -> np.ndarray:
+    """The live rows of a batch as an int64 array [n, columns + weight],
+    in the batch's order."""
+    import torch
+
+    if b is None:
+        return np.zeros((0, 1), np.int64)
+    live = b.weights != 0
+    return torch.stack([c[live].to(torch.int64)
+                        for c in (*b.cols, b.weights)], 1).cpu().numpy()
+
+
+class RowsAcc:
+    """An integrated output kept as numpy rows and netted when read: the
+    form of the paths whose outputs run to millions of rows (a dict of
+    them would take most of the phase)."""
+
+    def __init__(self):
+        self.parts: list = []
+
+    def add(self, b) -> None:
+        self.parts.append(live_rows(b))
+
+    def rows(self) -> np.ndarray:
+        return net_rows(np.concatenate(self.parts)) if self.parts else \
+            np.zeros((0, 1), np.int64)
+
+
+def rolling_oracle(cols) -> np.ndarray:
+    """(auction, date_time, max price) of every distinct (auction,
+    date_time) of the bids: sorted by (auction, date_time), each row's
+    window starts at the first row of its auction at or after date_time
+    less 10 s (one searchsorted) and ends after its last row of the same
+    time; the max is taken over the window's span."""
+    auction, _, price, _, ts = bid_cols(cols)
+    order = np.lexsort((ts, auction))
+    a, t, p = auction[order], ts[order], price[order]
+    group = np.cumsum(np.r_[True, a[1:] != a[:-1]]) - 1
+    span = int(t.max() - t.min()) + 2 * ROLLING_RANGE_MS + 1
+    key = group * span + (t - t.min())
+    start = np.searchsorted(key, key - ROLLING_RANGE_MS, "left")
+    end = np.searchsorted(key, key, "right")
+    best = p.copy()
+    for k in range(int((end - start).max())):
+        best = np.maximum(best, p[np.minimum(start + k, end - 1)])
+    first = np.r_[True, (a[1:] != a[:-1]) | (t[1:] != t[:-1])]
+    return net_rows(np.stack([a[first], t[first], best[first],
+                              np.ones(int(first.sum()), np.int64)], 1))
+
+
+def range_join_oracle(cols) -> np.ndarray:
+    """One equi-join of each bid's auction + d with the auction ids for
+    each d in -2..2: (auction, id, price, category) with the bids'
+    multiplicity."""
+    auction, _, price, _, _ = bid_cols(cols)
+    a = cols["auctions"]
+    order = np.argsort(a["id"])
+    ids, cat = a["id"][order], a["category"][order]
+    parts = []
+    for d in range(RANGE_JOIN_OFFSETS[0], RANGE_JOIN_OFFSETS[1] + 1):
+        target = auction + d
+        pos = np.minimum(np.searchsorted(ids, target), len(ids) - 1)
+        hit = ids[pos] == target
+        parts.append(np.stack([auction[hit], target[hit], price[hit],
+                               cat[pos[hit]],
+                               np.ones(int(hit.sum()), np.int64)], 1))
+    return net_rows(np.concatenate(parts))
+
+
+# the paths whose outputs and oracles are numpy rows (RowsAcc)
+ROW_PATHS = ("rolling", "range_join")
+
+
+def new_integral(name: str):
+    return RowsAcc() if name in ROW_PATHS else {}
+
+
+def integrate(acc, b) -> int:
+    """Add one tick's output batch to ``acc``; returns its rows."""
+    if isinstance(acc, RowsAcc):
+        acc.add(b)
+        return len(acc.parts[-1])
+    d = b.to_dict() if b is not None else {}
+    accumulate(acc, d)
+    return len(d)
+
+
+def check_integral(what: str, acc, want) -> int:
+    """Fail unless the integrated output equals the oracle's, which must
+    not be empty; returns the oracle's rows."""
+    if not len(want):
+        fail(f"{what}: the oracle is empty, the check would be vacuous")
+    if isinstance(acc, RowsAcc):
+        got = acc.rows()
+        if not np.array_equal(got, want):
+            bad = next((i for i in range(min(len(got), len(want)))
+                        if not np.array_equal(got[i], want[i])),
+                       min(len(got), len(want)))
+            fail(f"{what}: the integrated output differs from the oracle "
+                 f"({len(got)} vs {len(want)} rows; first difference at "
+                 f"row {bad}: {got[bad:bad + 2].tolist()} vs "
+                 f"{want[bad:bad + 2].tolist()})")
+    elif acc != want:
+        fail(f"{what}: the integrated output differs from the oracle: "
+             f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
+    return len(want)
+
+
+def same_output(name: str, got, want) -> bool:
+    """One tick's output batches equal (both canonical)."""
+    if name in ROW_PATHS:
+        return np.array_equal(live_rows(got), live_rows(want))
+    return (got.to_dict() if got is not None else {}) == \
+        (want.to_dict() if want is not None else {})
+
+
 ORACLES = {"q4": q4_oracle, "q3": q3_oracle, "q8": q8_oracle,
            "q15": q15_oracle, "q0": q0_oracle, "q1": q1_oracle,
            "q2": q2_oracle, "q12": q12_oracle, "q13": q13_oracle,
            "q14": q14_oracle, "q17": q17_oracle, "q20": q20_oracle,
            "q21": q21_oracle, "q22": q22_oracle, "q6": q6_oracle,
            "q9": q9_oracle, "q16": q16_oracle, "q18": q18_oracle,
-           "q19": q19_oracle, "q5": q5_oracle, "q7": q7_oracle}
+           "q19": q19_oracle, "q5": q5_oracle, "q7": q7_oracle,
+           "rolling": rolling_oracle, "range_join": range_join_oracle}
 
 
 def gen_config(name: str, rates: dict = GEN_RATE):
@@ -1676,7 +1976,7 @@ def build_query(name: str, device=None):
     from dbsp_tpu_torch.circuit import Runtime
     from dbsp_tpu_torch.nexmark import build_inputs, queries
 
-    query = getattr(queries, name)
+    query = CIRCUITS.get(name) or getattr(queries, name)
 
     def build(c):
         streams, handles = build_inputs(c)
@@ -1694,6 +1994,9 @@ class Recorder:
 
     query = None  # the query being driven
     paused = 0  # > 0: record nothing (a chain's own kernels, a check)
+    # gather_ladder calls (one launch each) with range queries (qhi_keys),
+    # by the query that made them
+    range_calls: dict = {}
 
     def __init__(self, module, name: str, *size_fns):
         self.module, self.name = module, name
@@ -1707,6 +2010,9 @@ class Recorder:
     def __call__(self, *args, **kw):
         if Recorder.paused:
             return self.orig(*args, **kw)
+        if kw.get("qhi_keys") is not None:
+            Recorder.range_calls[Recorder.query] = \
+                Recorder.range_calls.get(Recorder.query, 0) + 1
         for i, size_fn in enumerate(self.size_fns):
             size = size_fn(*args, **kw)
             if self.kept[i][0] is None or size > self.kept[i][0]:
@@ -1734,6 +2040,12 @@ def _ladder_queries(*args, **kw):
     return args[1].shape[0], _ladder_size(*args)
 
 
+def _ladder_range_size(*args, **kw):
+    """A gather call's size if it carries range queries (qhi_keys), else
+    -1: its largest such call is timed apart."""
+    return _ladder_size(*args) if kw.get("qhi_keys") is not None else -1
+
+
 def _ladder_slots(qkeys, qlive, levels, *a, **kw):
     """The argument slots of a ladder-consumer call (above ARGS_MAX its
     table comes from a host buffer, which a CUDA graph cannot capture)."""
@@ -1754,7 +2066,7 @@ def recorders():
         Recorder(ck_mod, "lex_probe_ladder_both", _probe_size),
         Recorder(ck_mod, "join_ladder", _ladder_size, _ladder_queries),
         Recorder(ck_mod, "gather_ladder", _ladder_size, _ladder_queries,
-                 _ladder_slots),
+                 _ladder_slots, _ladder_range_size),
         Recorder(ck_mod, "segment_reduce",
                  lambda spec, vals, w, *a, **k: w.shape[0]),
         Recorder(ck_mod, "rank_merge_scatter",
@@ -1766,6 +2078,14 @@ def recorders():
 
 
 host_metrics: dict = {}  # the host engine's numbers, beside the compiled
+
+
+def check_range_gathers(label: str) -> None:
+    """A rolling path must have launched the ladder gather with range
+    queries (its windows and affected rows)."""
+    if label.split("-")[0] == "rolling" and \
+            not Recorder.range_calls.get(label):
+        fail(f"{label}: no gather_ladder launch carried range queries")
 
 
 def run_query(name: str, all_events: dict):
@@ -1788,7 +2108,7 @@ def run_query(name: str, all_events: dict):
     spine = gc_spine(handle)
     gc_rows: list = []  # the GC'd spine's live rows after each tick
     Recorder.query = name
-    acc: dict = {}
+    acc = new_integral(name)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ck_mod.reset_launches()
@@ -1796,7 +2116,7 @@ def run_query(name: str, all_events: dict):
     for _ in range(warm_ticks):
         gen.feed(handles, n, n + EVENTS_PER_TICK)
         handle.step()
-        accumulate(acc, out.take().to_dict())
+        integrate(acc, out.take())
         if spine is not None:
             gc_rows.append(sum(int(b.live_count()) for b in spine.batches))
         n += EVENTS_PER_TICK
@@ -1809,7 +2129,7 @@ def run_query(name: str, all_events: dict):
         gen.feed(handles, n, n + EVENTS_PER_TICK)
         handle.step()
         ta = time.perf_counter()
-        accumulate(acc, out.take().to_dict())
+        integrate(acc, out.take())
         if spine is not None:
             gc_rows.append(sum(int(b.live_count()) for b in spine.batches))
         acc_s += time.perf_counter() - ta
@@ -1833,12 +2153,8 @@ def run_query(name: str, all_events: dict):
         all_events.clear()
         all_events[(cfg, n)] = gen.generate(0, n)
     events = all_events[(cfg, n)]
-    want = ORACLES[name](events)
-    if not want:
-        fail(f"{name} oracle is empty: the check would be vacuous")
-    if acc != want:
-        fail(f"{name} accumulated output differs from the oracle: "
-             f"{sorted(acc.items())[:5]} vs {sorted(want.items())[:5]}")
+    out_rows = check_integral(name, acc, ORACLES[name](events))
+    check_range_gathers(name)
     gc_report = None
     if spine is not None:
         # the GC dropped rows when the earliest window the bids count in
@@ -1882,7 +2198,8 @@ def run_query(name: str, all_events: dict):
         "launches": launches,
         "launches_per_measured_tick": {k: [min(c), max(c)]
                                        for k, c in per_tick.items()},
-        "output_rows": len(acc), "oracle_equal": True,
+        "output_rows": out_rows, "oracle_equal": True,
+        "gather_launches_with_range_queries": Recorder.range_calls.get(name),
         "note": f"{ticks * EVENTS_PER_TICK} measured events: a cut of "
                 "Nexmark's usual 100M events, made for the run's time limit",
     }))
@@ -1898,12 +2215,16 @@ def profile_run(fn):
     """torch.profiler over ``fn`` and a synchronize: {device op name: [ms,
     launches]}, the wall ms, and whether the session kept its first
     events (it starts with throwaway sentinel kernels, as device_ms's
-    sessions do, and leaves them out)."""
+    sessions do, and leaves them out). It traces the device only: host
+    op tracing doubled a compiled interval's dispatch time and tripled
+    the reading of its events (compiled q17: an 8-tick interval ran 1.2 s
+    and read 6 s device-only, 3.5-13.9 s and 10-18 s with the host's
+    ops), and no number here reads a host event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()  # no earlier work runs inside the session
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILER_SENTINELS):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
@@ -2191,24 +2512,23 @@ def run_compiled(name: str) -> dict:
     Recorder.paused += 1
     gen = NexmarkGenerator(cfg)
     hh, (hhandles, hout) = build_query(name)
-    acc: dict = {}
+    acc = new_integral(name)
     rows = 0
     for t in range(n_ticks):
         gen.feed(hhandles, t * EVENTS_PER_TICK, (t + 1) * EVENTS_PER_TICK)
         hh.step()
-        want = hout.to_dict()
+        want = hout.take()
         b = ch.canonicalize_sink(outs[t])
-        got = b.to_dict() if b is not None else {}
-        if got != want:
+        if not same_output(name, b, want):
             fail(f"compiled {name} tick {t} differs from the host engine: "
-                 f"{sorted(got.items())[:5]} vs {sorted(want.items())[:5]}")
-        accumulate(acc, got)
-        rows += len(got)
+                 f"{live_rows(b)[:5].tolist()} vs "
+                 f"{live_rows(want)[:5].tolist()}")
+        rows += integrate(acc, b)
     Recorder.paused -= 1
     n = n_ticks * EVENTS_PER_TICK
-    want = ORACLES[name](gen.generate(0, n))
-    if not want or acc != want:
-        fail(f"compiled {name} integrated output differs from the oracle")
+    want_rows = check_integral(f"compiled {name}", acc,
+                               ORACLES[name](gen.generate(0, n)))
+    check_range_gathers(f"{name}-compiled")
     gc_report = None
     if gc_cn is not None:
         # the GC'd trace is bounded by the window's span: its rows level
@@ -2266,7 +2586,9 @@ def run_compiled(name: str) -> dict:
                                        for k, c in per_tick.items() if c},
         "launches_with_profiled": launches_all,
         "output_rows": rows, "host_engine_equal": True,
-        "oracle_equal": True, "oracle_rows": len(want),
+        "oracle_equal": True, "oracle_rows": want_rows,
+        "gather_launches_with_range_queries": Recorder.range_calls.get(
+            f"{name}-compiled"),
         "note": f"{c_ticks * EVENTS_PER_TICK} measured events: a cut of "
                 "Nexmark's usual 100M events, made for the run's time "
                 "limit",
@@ -2521,12 +2843,73 @@ def pct(samples: list, q: float) -> float:
     return s[min(len(s) - 1, int(len(s) * q))] / 1e6
 
 
+@contextlib.contextmanager
+def graph_launches():
+    """While open, a CUDA graph captured through ``torch.cuda.graph``
+    keeps the wrapper launches made inside its capture, and each replay
+    of it adds them to the tally yielded (by wrapper name, as
+    cuda_kernels.LAUNCHES): a replay calls no wrapper."""
+    import torch
+
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    per_graph: dict = {}
+    tally = dict.fromkeys(ck_mod.LAUNCHES, 0)
+    orig_graph, orig_replay = torch.cuda.graph, torch.cuda.CUDAGraph.replay
+
+    class counting_graph(orig_graph):
+        def __enter__(self):
+            self.launches0 = dict(ck_mod.LAUNCHES)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            per_graph[id(self.cuda_graph)] = {
+                k: n - self.launches0[k] for k, n in ck_mod.LAUNCHES.items()}
+            return out
+
+    def replay(graph):
+        orig_replay(graph)
+        for k, n in per_graph[id(graph)].items():
+            tally[k] += n
+
+    torch.cuda.graph, torch.cuda.CUDAGraph.replay = counting_graph, replay
+    try:
+        yield tally
+    finally:
+        torch.cuda.graph, torch.cuda.CUDAGraph.replay = orig_graph, orig_replay
+
+
+def lost_launches(dev: dict, before: dict, graphs_before: dict,
+                  graphs: dict) -> dict:
+    """{device kernel: [profiled, launched]} for each ACCOUNTED_KERNELS
+    kernel whose launches in a profile (``dev``, profile_run's) differ
+    from those its wrappers made since the counts were ``before``
+    (cuda_kernels.LAUNCHES) plus those graph replays made since the tally
+    ``graphs`` (graph_launches') was ``graphs_before``."""
+    from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
+
+    got = port_kernel_per_tick(dev, 1, 1)
+    out = {}
+    for d, wrappers in ACCOUNTED_KERNELS.items():
+        want = sum(ck_mod.LAUNCHES[w] - before[w] + graphs[w]
+                   - graphs_before[w] for w in wrappers)
+        if got.get(d, 0) != want:
+            out[d] = [got.get(d, 0), want]
+    return out
+
+
 def run_scanned(name: str) -> None:
     """Phase 4d (module doc): query ``name`` compiled, run eagerly and
     then scanned (each validation interval one CUDA-graph replay), from
     the same warm-up; at every chunk end the scanned run's states and
     last-tick output equal the eager run's at the same tick, bit for
     bit."""
+    with graph_launches() as tally:
+        _run_scanned(name, tally)
+
+
+def _run_scanned(name: str, graph_tally: dict) -> None:
     import torch
 
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
@@ -2676,11 +3059,15 @@ def run_scanned(name: str) -> None:
         # too. The eager run profiles each; the scanned run profiles them
         # until one is readable in both runs (reading a session's events
         # takes seconds), and runs the rest unprofiled. An interval's
-        # profile is readable where the profiler kept its sentinels and,
-        # scanned, no capture fell in it; the runs are compared in the
-        # same interval (a maintain that merges levels launches more
-        # kernels in one interval than in the next).
+        # profile is readable where the profiler kept its sentinels, its
+        # launches of the ACCOUNTED_KERNELS equal the wrappers' and the
+        # graph replays' counts (a session on the H100 once lost 2 of an
+        # eager q17 interval's 64 consumer probes), and, scanned, no
+        # capture fell in it; the runs are compared in the same interval
+        # (a maintain that merges levels launches more kernels in one
+        # interval than in the next).
         readable: list = []
+        lost_in: dict = {}  # interval: lost_launches' result
         sessions = 0
         for i in range(SCAN_PROFILE_INTERVALS):
             t_int = m0 + c_ticks + i * C_VALIDATE
@@ -2697,13 +3084,21 @@ def run_scanned(name: str) -> None:
                 continue
             caps_before = sum(ch.captures.values())
             sessions += 1
+            counts0, tally0 = dict(ck_mod.LAUNCHES), dict(graph_tally)
             dev, wall_ms, kept = profile_run(interval)
+            lost = lost_launches(dev, counts0, tally0, graph_tally)
             at_chunk_end(t_int + C_VALIDATE)
             captured_in = sum(ch.captures.values()) - caps_before
+            # a capture counts the launches it records, which run only
+            # at the replays: its interval has no accounting
+            if lost and not captured_in:
+                lost_in[i] = lost
             readable.append(profile_summary(dev, wall_ms, C_VALIDATE)
-                            if kept and not captured_in else None)
+                            if kept and not captured_in and not lost
+                            else None)
         profiles[mode] = readable
         out["profile_readable"] = [p is not None for p in readable]
+        out["profile_lost_launches"] = lost_in
         out["profiler_sessions"] = sessions
         res[mode] = out
         del ch
@@ -2711,9 +3106,12 @@ def run_scanned(name: str) -> None:
             if profiles["eager"][i] and profiles["scanned"][i]]
     if not both:
         fail(f"scanned {name}: in none of {SCAN_PROFILE_INTERVALS} profiled "
-             "intervals did both runs' profiles keep their sentinels with no "
-             f"capture inside (eager {res['eager']['profile_readable']}, "
-             f"scanned {res['scanned']['profile_readable']})")
+             "intervals did both runs' profiles keep their sentinels and "
+             "every counted launch with no capture inside (eager "
+             f"{res['eager']['profile_readable']}, lost "
+             f"{res['eager']['profile_lost_launches']}; scanned "
+             f"{res['scanned']['profile_readable']}, lost "
+             f"{res['scanned']['profile_lost_launches']})")
     for mode in res:
         prof = dict(profiles[mode][both[0]], interval=both[0])
         res[mode]["profiled"] = prof
@@ -3296,12 +3694,15 @@ LADDER_NO_LIBRARY = (
     "the matching rows")
 
 
-def kernel_table(captured, most_queries, runs, ck: Checker):
+def kernel_table(captured, most_queries, runs, ck: Checker,
+                 range_call=None):
     """One row per kernel: its launches on each query's run and per
     measured tick, and its times at the largest call the queries gave
     it (``captured``; the ladder join and gather also at their call with
-    the most queries, ``most_queries``). Also returns the variants of those calls it timed, ``{key: (entry
-    point, args, kw)}``, for the turns."""
+    the most queries, ``most_queries``, and the gather at its largest
+    call with range queries, ``range_call``). Also returns the variants
+    of those calls it timed, ``{key: (entry point, args, kw)}``, for the
+    turns."""
     import torch
 
     from dbsp_tpu_torch.zset import cuda_kernels as ck_mod
@@ -3360,10 +3761,14 @@ def kernel_table(captured, most_queries, runs, ck: Checker):
             dead[1] = torch.zeros_like(args[1])
             one[4 if join else 3] = 1
             _, most, most_kw, most_query = most_queries[name]
-            for label, call, ckw, on in (
-                    ("every query dead", tuple(dead), kw, query),
-                    ("out_cap 1", tuple(one), kw, query),
-                    ("most queries", most, most_kw, most_query)):
+            calls = [("every query dead", tuple(dead), kw, query),
+                     ("out_cap 1", tuple(one), kw, query),
+                     ("most queries", most, most_kw, most_query)]
+            if not join and range_call and range_call[0] >= 0 and \
+                    range_call[1] is not args:
+                calls.append(("largest with range queries",
+                              *range_call[1:]))
+            for label, call, ckw, on in calls:
                 ck.check(name, f"{label} ({on})", launch_checked(name),
                          plain, *call, **ckw)
                 variants[f"{name}, {label}"] = (name, call, ckw)
@@ -3664,7 +4069,8 @@ def main() -> int:
     with phase("kernels"):
         check_kernels(ck, dev)
     say(f"kernels: {json.dumps(ck.cases)} cases equal to the plain "
-        f"versions, tolerance 0 (exact: integer data)")
+        f"versions, tolerance 0 (exact: integer data); of gather_ladder's, "
+        f"{ck.range_gather_keys} in range mode with gather_keys=1")
 
     # 4. the queries' paths on the card, one after the other, each with
     #    the launch counts set to 0 just before it and read just after
@@ -3727,7 +4133,9 @@ def main() -> int:
 
     # 6. kernel table at the shapes the queries gave each kernel
     with phase("timing"):
-        table, variants = kernel_table(captured, most_queries, runs, ck)
+        table, variants = kernel_table(
+            captured, most_queries, runs, ck,
+            next(r for r in recs if r.name == "gather_ladder").kept[3])
     if opts.parent:
         # 7. the other trees' kernels against this tree's, in turns
         with phase("turns"):

@@ -24,10 +24,11 @@ level 0 (an O(|delta|) indexed copy, no merge, see
 validated intervals in the handle's ``maintain``. Consumers probe every
 level at once with the fused ladder cursors and consolidate once.
 
-A trace that a window reads is not slotted (the window slices each
-level, one slice per viewed level), and a window with ``gc=True``
-truncates every level of its trace each tick (``ctx.gc_bounds``, applied
-by the handle after the tick's evals).
+A trace that a window, a range join or a rolling aggregate reads is not
+slotted: a window and a range join work level by level, so each slot would
+cost them launches (the rolling aggregate keeps the reference's rule). A
+window with ``gc=True`` truncates every level of its trace each tick
+(``ctx.gc_bounds``, applied by the handle after the tick's evals).
 
 OUTPUT traces (an aggregate's previous outputs, a linear aggregate's
 accumulators, a top-K's previous rows) are NOT leveled: consolidated,
@@ -502,6 +503,83 @@ class CJoin(CNode):
         return None, out
 
 
+def range_gather_levels(qp, qlo, qhi, qlive, levels: Sequence[Batch],
+                        out_cap: int):
+    """Per-row [lo, hi] time-range gather over K trace levels in one
+    launch of the ladder consumer (on a CUDA tensor): the range twin of
+    :func:`gather_levels`, with distinct lo/hi probe columns and the time
+    key column gathered back (the host rolling aggregate's
+    ``RangeGather`` makes the same call). Returns ``((qrow, t, vals, w),
+    unclamped total)``; dead slots carry qrow == q_cap (the trash
+    segment) and sentinel columns."""
+    assert levels, "range_gather_levels: trace has no levels"
+    (qrow, cols, w), total = cuda_kernels.gather_ladder(
+        (qp, qlo), qlive, list(levels), out_cap, qhi_keys=(qp, qhi),
+        gather_keys=1)
+    return (qrow, cols[0], cols[1:], w), total.to(torch.int64)
+
+
+class CRangeJoin(CNode):
+    """Incremental relative-range join over CViews (the host RangeJoinOp's
+    semantics: dL joins trace(R) after the tick, dR joins trace(L) before
+    it), each side's per-level expansions written into one shared static
+    buffer at running offsets. The buffers are one trash slot longer than
+    the capacity: a slot past the capacity (an overflow, which the
+    requirement reports) is written there, then cut off."""
+
+    defer_consolidate = False
+
+    def __init__(self, node, op):
+        super().__init__(node, op)
+        self.caps["left"] = 0
+        self.caps["right"] = 0
+
+    def _fan(self, ctx, cap_key, delta, levels, core) -> Batch:
+        from dbsp_tpu_torch.operators.join_range import _range_join_level_impl
+
+        out_cap = self.caps[cap_key]
+        dev = delta.device
+        j = torch.arange(out_cap, device=dev)
+        offset = torch.zeros((), dtype=torch.int64, device=dev)
+        req = torch.zeros((), dtype=torch.int64, device=dev)
+        bufs = wbuf = None
+        for lvl in levels:
+            out, total = _range_join_level_impl(
+                delta, lvl, core.lo_off, core.hi_off, core.fn, out_cap)
+            req = req + total
+            n = torch.clamp(total, max=out_cap)
+            at = j + offset
+            idx = torch.where((j < n) & (at < out_cap), at, out_cap)
+            if bufs is None:
+                bufs = [kernels.sentinel_fill((out_cap + 1,), c.dtype, dev)
+                        for c in out.cols]
+                wbuf = torch.zeros((out_cap + 1,), dtype=out.weights.dtype,
+                                   device=dev)
+            bufs = [b.index_copy(0, idx, c) for b, c in zip(bufs, out.cols)]
+            wbuf = wbuf.index_copy(0, idx,
+                                   torch.where(j < n, out.weights, 0))
+            offset = torch.clamp(offset + n, max=out_cap)
+        ctx.require(self, cap_key, req)
+        if bufs is None:
+            return Batch.empty(*self.op.out_schema, cap=out_cap, device=dev)
+        nko = len(self.op.out_schema[0])
+        cols = [b[:out_cap] for b in bufs]
+        return Batch(tuple(cols[:nko]), tuple(cols[nko:]), wbuf[:out_cap])
+
+    def eval(self, ctx, state, inputs):
+        left, right = inputs
+        ensure_side_cap(self, "left", left.delta.cap)
+        ensure_side_cap(self, "right", right.delta.cap)
+        lout = self._fan(ctx, "left", left.delta, right.post,
+                         self.op._left)
+        rout = self._fan(ctx, "right", right.delta, left.pre,
+                         self.op._right)
+        out = concat_batches([lout, rout])
+        if not self.defer_consolidate:
+            out = out.consolidate()
+        return None, out
+
+
 class CDistinct(CNode):
     """Incremental distinct over its trace's CView, stateless given the
     view: one launch of the two-sided ladder probe finds every delta row's
@@ -712,6 +790,101 @@ class CLinearAggregate(CNode):
                                         *old, agg, nk)
         state2, required = static_append(state, sdiff)
         ctx.require(self, "acc_trace", required)
+        return state2, out
+
+
+class CRolling(CNode):
+    """Partitioned rolling aggregate (``timeseries/rolling.py``) over a
+    CView: find the dirty (p, t') slots, recompute each window [t' -
+    range, t'] from the input trace's levels, and diff against the
+    previous outputs, kept in a static out trace (one live row per key,
+    so the old-output gather is exact at the dirty capacity). Window
+    recompute only: the radix tree keeps host-driven level state, so a
+    compiled ``use_tree=True`` operator ignores its tree. Three gathers a
+    tick, each one launch of the ladder consumer: the affected rows (over
+    key-only levels, range mode with the time column gathered back), the
+    windows, and the old outputs."""
+
+    MONOTONE_CAPS = frozenset({"out_trace", "affected", "window"})
+
+    def __init__(self, node, op):
+        super().__init__(node, op)
+        self.caps["affected"] = 0
+        self.caps["dirty"] = 0
+        self.caps["window"] = 0
+        self.caps["out_trace"] = 0
+
+    def init_state(self):
+        migrated = _migrate_spine(self.op.out_spine)
+        if not self.caps["out_trace"]:
+            live = 0 if migrated is None else int(migrated.live_count())
+            self.caps["out_trace"] = bucket_cap(max(live * 2, 1024))
+        if migrated is not None:
+            return migrated.with_cap(self.caps["out_trace"])
+        return Batch.empty(*self.op.out_schema, cap=self.caps["out_trace"],
+                           device=self.device)
+
+    def eval(self, ctx, state, inputs):
+        from dbsp_tpu_torch.operators.aggregate import (_diff_outputs_impl,
+                                                        _gather_level_impl,
+                                                        _reduce_groups_impl,
+                                                        _TupleMax)
+        from dbsp_tpu_torch.timeseries.rolling import (_dirty_rows_impl,
+                                                       _rolling_reduce_impl)
+
+        view: CView = inputs[0]
+        delta = view.delta
+        rng = self.op.range_ms
+        dp, dt = delta.keys[0], delta.keys[1]
+        dlive = delta.weights != 0
+        if not self.caps["affected"]:
+            self.caps["affected"] = max(64, 2 * delta.cap)
+            self.caps["dirty"] = max(64, 2 * delta.cap)
+            self.caps["window"] = max(64, 4 * delta.cap)
+
+        # 1. dirty slots: the trace rows in [ts, ts + range] of each delta
+        #    row (keys only), and the delta's own rows
+        key_only = [Batch(b.keys, (), b.weights) for b in view.post]
+        (qrow, t, _, w), aff_req = range_gather_levels(
+            dp, dt, dt + rng, dlive, key_only, self.caps["affected"])
+        ctx.require(self, "affected", aff_req)
+        ap, at, alive = _dirty_rows_impl(dp, dt, dlive, qrow, t, w)
+        ctx.require(self, "dirty", alive.sum())
+        a_cap = self.caps["dirty"]
+
+        def fit(arr, fill):
+            # the consolidated slots are packed at the front: cut or pad
+            # to the dirty capacity (the requirement reports a cut of
+            # live slots)
+            n = arr.shape[-1]
+            if n >= a_cap:
+                return arr[:a_cap]
+            pad = torch.full((a_cap - n,), fill, dtype=arr.dtype,
+                             device=arr.device)
+            return torch.cat([arr, pad])
+
+        ap = fit(ap, kernels.sentinel_scalar(ap.dtype))
+        at = fit(at, kernels.sentinel_scalar(at.dtype))
+        alive = fit(alive, False)
+
+        # 2. recompute each dirty window from the input trace
+        (wrow, wt, wvals, ww), win_req = range_gather_levels(
+            ap, at - rng, at, alive, view.post, self.caps["window"])
+        ctx.require(self, "window", win_req)
+        new_vals, new_present = _rolling_reduce_impl(
+            wrow, wt, wvals, ww, at, self.op.agg, a_cap)
+
+        # 3. diff against the previous outputs
+        oqrow, ovals, ow, _ = _gather_level_impl((ap, at), alive, state,
+                                                 a_cap)
+        old_vals, old_present = _reduce_groups_impl(
+            (oqrow, ovals, ow), _TupleMax(len(self.op.agg.out_dtypes)),
+            a_cap, net=False)
+        cols, w = _diff_outputs_impl((ap, at), alive, new_vals, new_present,
+                                     old_vals, old_present)
+        out = Batch(cols[:2], cols[2:], w, runs=(int(w.shape[-1]),))
+        state2, required = static_append(state, out)
+        ctx.require(self, "out_trace", required)
         return state2, out
 
 

@@ -97,9 +97,11 @@ def _cnode_for(node, trace_levels: int) -> CNode:
                                                      MapOp)
     from dbsp_tpu_torch.operators.io_handles import OutputOperator, ZSetInput
     from dbsp_tpu_torch.operators.join import JoinOp
+    from dbsp_tpu_torch.operators.join_range import RangeJoinOp
     from dbsp_tpu_torch.operators.topk import TopKOp
     from dbsp_tpu_torch.operators.trace_op import TraceOp
-    from dbsp_tpu_torch.timeseries import WatermarkMonotonic, WindowOp
+    from dbsp_tpu_torch.timeseries import (RollingAggregateOp,
+                                           WatermarkMonotonic, WindowOp)
 
     op = node.operator
     if isinstance(op, ZSetInput):
@@ -132,6 +134,10 @@ def _cnode_for(node, trace_levels: int) -> CNode:
         return cnodes.CWatermark(node, op)
     if isinstance(op, WindowOp):
         return cnodes.CWindow(node, op)
+    if isinstance(op, RangeJoinOp):
+        return cnodes.CRangeJoin(node, op)
+    if isinstance(op, RollingAggregateOp):
+        return cnodes.CRolling(node, op)
     if isinstance(op, OutputOperator):
         return cnodes.COutput(node, op)
     raise NotImplementedError(
@@ -295,14 +301,19 @@ class CompiledHandle:
                                     for n in self.order]
         self.by_index = {cn.node.index: cn for cn in self.cnodes}
         for cn in self.cnodes:
-            if not isinstance(cn, cnodes.CWindow):
+            if not isinstance(cn, (cnodes.CWindow, cnodes.CRangeJoin,
+                                   cnodes.CRolling)):
                 continue
+            # a window slices each viewed level and a range join expands
+            # each one: their traces take no slots (nor, as in the
+            # reference, does a rolling aggregate's)
+            for i in cn.node.inputs:
+                tgt = self.by_index.get(i)
+                if isinstance(tgt, cnodes.CTrace):
+                    tgt._no_slots = True
             tgt = self.by_index.get(cn.node.inputs[0])
-            if not isinstance(tgt, cnodes.CTrace):
-                continue
-            # a window slices each viewed level: its trace takes no slots
-            tgt._no_slots = True
-            if cn.op.gc:
+            if isinstance(cn, cnodes.CWindow) and cn.op.gc and \
+                    isinstance(tgt, cnodes.CTrace):
                 # a GC'd trace is bounded by the window's span, not the
                 # run's length: presize does not project it linearly. A
                 # tick truncates (shrinks) every level, so maintain
@@ -373,10 +384,10 @@ class CompiledHandle:
         flat_map, which consolidate after transforming; an n-ary sum,
         which concatenates and consolidates; an output sink, which
         canonicalizes when read), the node's own trailing consolidation is
-        dead work and is dropped (``defer_consolidate``): a join's, an
-        n-ary sum's, or a map's or flat_map's that does not preserve
-        order. Order-preserving pass-throughs (filter, neg) pass their
-        consumers' need on. Everything stateful (traces, aggregates,
+        dead work and is dropped (``defer_consolidate``): a join's, a
+        range join's, an n-ary sum's, or a map's or flat_map's that does
+        not preserve order. Order-preserving pass-throughs (filter, neg)
+        pass their consumers' need on. Everything stateful (traces, aggregates,
         distinct, the plus / minus merges) and an order-preserving map,
         whose sort-free consolidation scans one sorted run, need
         consolidated inputs and fence the deferral. Returns the number of
@@ -419,7 +430,8 @@ class CompiledHandle:
             cn._out_need = (not cons) or any(input_need(c) for c in cons)
             if cn._out_need:
                 continue
-            can_defer = isinstance(cn, (cnodes.CJoin, cnodes.CSumN)) or (
+            can_defer = isinstance(cn, (cnodes.CJoin, cnodes.CRangeJoin,
+                                        cnodes.CSumN)) or (
                 isinstance(cn, cnodes.CPure)
                 and isinstance(cn.op, (MapOp, FlatMapOp))
                 and not getattr(cn.op, "preserves_order", False))

@@ -61,8 +61,12 @@ class Aggregator:
 
     def reduce(self, val_cols, weights, seg, num_segments: int
                ) -> Tuple[torch.Tensor, ...]:
-        """The outputs per segment id of a spec-less aggregator."""
-        raise NotImplementedError
+        """The outputs per segment id: the reduce spec in one segment
+        reduction; a spec-less aggregator writes its own."""
+        spec = self.reduce_spec()
+        if spec is None:
+            raise NotImplementedError
+        return segment_reduce(spec, val_cols, weights, seg, num_segments)
 
     def combine(self, a_vals, a_present, b_vals, b_present):
         """Semigroup combine of two per-segment partial outputs (needed

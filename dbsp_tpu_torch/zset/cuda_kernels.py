@@ -822,6 +822,10 @@ def rank_merge_scatter(cols_a: Cols, w_a: torch.Tensor, cols_b: Cols,
         raise ValueError(f"{what}: needs 1..{MAX_COLS} columns on both "
                          f"sides, got {ncols} and {len(cols_b)}")
     na, nb = w_a.shape[0], w_b.shape[0]
+    if na + nb == 0:  # nothing to merge: no launch, so no count
+        return (tuple(torch.empty((0,), dtype=c.dtype, device=dev)
+                      for c in cols_a),
+                torch.empty((0,), dtype=w_a.dtype, device=dev))
     nc = ncols + 1
     args = _ArgBlock(dev, 5 * nc, what)
     outs = []

@@ -134,6 +134,21 @@ def _ref_compiled_run(query, ticks, validate_every, scan, rate=None):
     return outs, ch
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's CPU work in these tests. The
+    tier-1 run puts six pytest workers on eight cores, where torch's
+    default of one OpenMP thread per core oversubscribes them and the
+    threads' waits made these tests 10-80x slower (one that takes 4 s
+    alone took 117 s beside six busy processes, and 6 s with one
+    thread). The tensors here are small: one thread costs nothing
+    alone. Other port test modules import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def small_caps(monkeypatch):
     """Seed capacities below a few ticks' state, so the run overflows,
@@ -569,8 +584,9 @@ def test_compiled_feeds_mode_algebra_matches_reference_host():
 
 def _placement_circuit(add_input, i64):
     """An order-preserving map fed by a join and feeding a trace (the
-    distinct's), a join -> filter -> map chain to the sink, and a
-    flat_map to the sink."""
+    distinct's), a join -> filter -> map chain to the sink, a flat_map to
+    the sink, a range join to the sink, and a range join feeding an
+    order-preserving map and a distinct."""
     def build(c):
         s, h = add_input(c, (i64,), (i64,))
         t, g = add_input(c, (i64,), (i64,))
@@ -592,17 +608,28 @@ def _placement_circuit(add_input, i64):
                     (_twice(v[0]) % 2 == 0) | (row == 0))
 
         o3 = s.flat_map_rows(two, 2, (i64,), (i64,), name="pflat").output()
-        return (h, g), (o1, o2, o3)
+        o4 = s.join_range(t, -1, 2,
+                          lambda lk, lv, rk, rv: ((lk[0],), (rk[0], rv[0])),
+                          (i64,), (i64, i64), name="prj").output()
+        rj2 = s.join_range(t, 0, 1,
+                           lambda lk, lv, rk, rv: ((lk[0],), (lv[0], rk[0])),
+                           (i64,), (i64, i64), name="prj2")
+        o5 = rj2.map_rows(lambda k, v: (k, (v[0],)), (i64,), (i64,),
+                          name="prjmap", preserves_order=True
+                          ).distinct().output()
+        return (h, g), (o1, o2, o3, o4, o5)
     return build
 
 
 def test_placement_pass_matches_reference():
     """The placement rule as the reference writes it: an order-preserving
-    map needs consolidated input, so the join feeding it keeps its
-    consolidation; a join -> filter -> map chain defers the join's and
-    the map's; a flat_map to the sink defers its own. The deferred count
-    equals the reference's and every output equals the reference's host
-    engine, tick for tick, with retractions."""
+    map needs consolidated input, so the join (or range join) feeding it
+    keeps its consolidation; a join -> filter -> map chain defers the
+    join's and the map's; a flat_map or a range join to the sink defers
+    its own. The deferred count equals the reference's and every output
+    equals the reference's host engine, tick for tick, with
+    retractions."""
+    import dbsp_tpu.operators.join_range  # noqa: F401  (registers it)
     from dbsp_tpu.compiled import compile_circuit as rcompile_circuit
     from dbsp_tpu.operators import add_input_zset
     from dbsp_tpu.zset.batch import Batch
@@ -616,10 +643,10 @@ def test_placement_pass_matches_reference():
     ch = compile_circuit(th)
     ref_ch = rcompile_circuit(Runtime.init_circuit(
         1, _placement_circuit(add_input_zset, jnp.int64))[0])
-    assert ch.deferred_consolidations == ref_ch.deferred_consolidations == 3
+    assert ch.deferred_consolidations == ref_ch.deferred_consolidations == 4
     deferred = sorted(cn.op.name for cn in ch.cnodes
                       if getattr(cn, "defer_consolidate", False))
-    assert deferred == ["pflat", "pflip", "pj2"], deferred
+    assert deferred == ["pflat", "pflip", "pj2", "prj"], deferred
     rng = np.random.default_rng(5)
     live = [[], []]
     seen = 0

@@ -31,6 +31,7 @@ from dbsp_tpu_torch.operators.aggregate import Aggregator as TAggregator
 from dbsp_tpu_torch.zset import cuda_kernels
 from dbsp_tpu_torch.zset.batch import Batch as TBatch
 from test_pallas_kernels import _adversarial_ladders, _consolidated
+from test_torch_compiled import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture

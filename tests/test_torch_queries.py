@@ -23,6 +23,7 @@ from dbsp_tpu_torch.nexmark import GeneratorConfig as TGeneratorConfig
 from dbsp_tpu_torch.nexmark import NexmarkGenerator as TNexmarkGenerator
 from dbsp_tpu_torch.nexmark import build_inputs as tbuild_inputs
 from dbsp_tpu_torch.nexmark import queries as tqueries
+from test_torch_compiled import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _circuit(runtime, build_inputs_fn, query, **kw):

@@ -35,6 +35,7 @@ from dbsp_tpu_torch.nexmark import build_inputs as tbuild_inputs
 from dbsp_tpu_torch.nexmark import queries as tqueries
 from dbsp_tpu_torch.operators import add_input_zset as tadd_input_zset
 from dbsp_tpu_torch.zset.batch import Batch as TBatch
+from test_torch_compiled import one_torch_thread  # noqa: F401  (autouse)
 
 
 def dict_add(acc: dict, delta: dict) -> dict:
